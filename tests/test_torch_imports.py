@@ -1,0 +1,48 @@
+"""The port stands alone: importing every ``repro_torch`` module pulls in
+neither JAX nor the reference package, and nothing is built or launched
+at import time."""
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def _modules():
+    import repro_torch
+
+    return sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))
+
+
+def test_every_module_imports_without_jax_or_repro():
+    mods = _modules()
+    assert "repro_torch.kernels.msj_probe.ops" in mods and "repro_torch.core.executor" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
+        " or k == 'repro' or k.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "import repro_torch.kernels.msj_probe.ops as ops\n"
+        "assert ops.probe_bucketed.launches == 0\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], env={"PYTHONPATH": str(SRC), "PATH": ""},
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_sources_ship_with_the_package():
+    from repro_torch.kernels import build
+
+    srcs = build.sources()
+    assert [s.name for s in srcs] == ["probe_bucketed.cu"]
+    assert all(build.lib_path(s).parent == build.BUILD_DIR for s in srcs)

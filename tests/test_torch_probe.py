@@ -1,0 +1,130 @@
+"""Port differential: the bucketed MSJ probe.
+
+``repro_torch``'s ``probe_bucketed`` (on CPU tensors: the plain band
+compare the CUDA kernel is held against on the card) and
+``probe_bucketed_plain`` against the reference's Pallas ``probe_bucketed``
+run in interpret mode, its pure oracle ``ref.probe`` and the port's own
+oracles, on the reference's fingerprint corpus: empty sides, duplicate
+keys, dense collisions, wide keys, huge magnitudes, forced fingerprint
+collisions and ragged tile edges.  Exact equality: hits are booleans."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jnp = pytest.importorskip("jax.numpy")
+
+from repro.kernels.msj_probe import ops as jops  # noqa: E402
+from repro.kernels.msj_probe import ref as jref  # noqa: E402
+from repro_torch.core.msj import probe_dense, probe_sorted  # noqa: E402
+from repro_torch.kernels.msj_probe import ops, ref  # noqa: E402
+
+
+def _case(rng, nb, np_, kw, key_range):
+    return (
+        rng.integers(0, 3, nb).astype(np.int32),
+        rng.integers(-key_range, key_range + 1, (nb, kw)).astype(np.int32),
+        rng.random(nb) < 0.7,
+        rng.integers(0, 3, np_).astype(np.int32),
+        rng.integers(-key_range, key_range + 1, (np_, kw)).astype(np.int32),
+        rng.random(np_) < 0.7,
+    )
+
+
+def _port(case, fps=None, fn=ops.probe_bucketed):
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in case]
+    kw = {}
+    if fps is not None:
+        kw = {"build_fp": torch.from_numpy(fps[0]), "probe_fp": torch.from_numpy(fps[1])}
+    out = fn(*t, **kw)
+    assert out.dtype == torch.bool and out.shape == (case[3].shape[0],)
+    return out.numpy()
+
+
+def _check(case, fps=None, *, pallas=False, tiles=(256, 256)):
+    j = [jnp.asarray(a) for a in case]
+    want = np.asarray(jref.probe(*j))
+    for fn in (ops.probe_bucketed, ops.probe_bucketed_plain, probe_sorted, probe_dense,
+               ref.probe):
+        np.testing.assert_array_equal(_port(case, fps, fn), want, err_msg=fn.__name__)
+    if pallas:
+        kw = {} if fps is None else {"build_fp": jnp.asarray(fps[0]),
+                                     "probe_fp": jnp.asarray(fps[1])}
+        got = np.asarray(jops.probe_bucketed(*j, interpret=True, tp=tiles[0], tb=tiles[1],
+                                             **kw))
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(_port(case, fps), got)
+
+
+@pytest.mark.parametrize("nb,np_,kw,key_range", [
+    (0, 40, 1, 5),       # empty build side
+    (40, 0, 1, 5),       # empty probe side
+    (1, 1, 1, 1),
+    (64, 100, 1, 0),     # all-duplicate keys (one key group)
+    (100, 100, 2, 3),    # dense collisions
+    (300, 200, 3, 10_000),  # sparse, wide keys
+    (128, 256, 2, 2**30),   # huge magnitudes incl. negatives
+])
+def test_probe_bucketed_matches_reference_grid(nb, np_, kw, key_range):
+    _check(_case(np.random.default_rng(0), nb, np_, kw, key_range), pallas=nb == 100)
+
+
+@pytest.mark.parametrize("collide", ["all-equal", "two-buckets", "mod4"])
+def test_probe_bucketed_forced_collisions(collide):
+    """Colliding fingerprints co-bucket distinct keys; the compare inside
+    a band is exact, so results must not change."""
+    case = _case(np.random.default_rng(1), 200, 150, 2, 4)
+    bk, pk = case[1], case[4]
+    if collide == "all-equal":
+        fps = (np.zeros(200, np.int32), np.zeros(150, np.int32))
+    elif collide == "two-buckets":
+        fps = (bk[:, 0] % 2, pk[:, 0] % 2)
+    else:
+        fps = ((bk[:, 0] % 4).astype(np.int32), (pk[:, 0] % 4).astype(np.int32))
+    _check(case, fps, pallas=collide == "all-equal")
+
+
+@pytest.mark.parametrize("n", [ops.TILE - 1, ops.TILE, ops.TILE + 1, 3 * ops.TILE + 7])
+def test_probe_bucketed_ragged_tiles(n):
+    """Side lengths around the tile size: a partial last tile, bands that
+    start inside a tile of invalid rows, and the int32 extremes."""
+    rng = np.random.default_rng(n)
+    case = list(_case(rng, n + 5, n, 1, 40))
+    case[1][:3, 0] = [-(2**31), 2**31 - 1, -1]
+    case[4][:3, 0] = [-(2**31), 2**31 - 1, -1]
+    # the reference's own tile sizes vary too: its result must not move
+    _check(tuple(case), pallas=n == ops.TILE + 1, tiles=(128, 8))
+
+
+def test_probe_bucketed_wide_key_rows():
+    """Many key columns: the kernel's shared-memory chunk shrinks with the
+    key width, the plain version's arithmetic does not change."""
+    _check(_case(np.random.default_rng(5), 150, 130, 30, 1))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_probe_bucketed_randomized(seed):
+    rng = np.random.default_rng(100 + seed)
+    nb, np_ = (int(v) for v in rng.integers(0, 400, 2))
+    _check(_case(rng, nb, np_, int(rng.integers(1, 5)), int(rng.integers(1, 50))))
+
+
+def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
+    """The wrapper picks the plain band compare only for CPU tensors: a
+    CUDA input goes to the kernel launcher (here a stub standing in for
+    the card), never to the plain version."""
+    seen = []
+    monkeypatch.setattr(ops, "band_probe_cuda", lambda *a: seen.append("cuda") or a[2])
+    monkeypatch.setattr(ops, "band_probe_plain", lambda *a: seen.append("plain") or a[2])
+    case = [torch.from_numpy(a) for a in _case(np.random.default_rng(2), 8, 8, 1, 3)]
+    ops.probe_bucketed(*case)
+    assert seen == ["plain"]
+    probe_sig = case[3]
+    monkeypatch.setattr(type(probe_sig), "is_cuda", property(lambda self: True))
+    ops.probe_bucketed(*case)
+    assert seen == ["plain", "cuda"]
+
+
+def test_launch_counter_untouched_on_cpu():
+    before = ops.probe_bucketed.launches
+    _port(_case(np.random.default_rng(3), 50, 50, 1, 5))
+    assert ops.probe_bucketed.launches == before
