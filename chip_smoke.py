@@ -7,9 +7,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 
 1. ``device``  — the card's name and ``nvidia-smi`` name / power limit.
 2. ``build``   — every CUDA source compiled with ``nvcc`` for ``sm_90a``
-   from the sources in this checkout (registers / shared memory from
-   ptxas).
-3. ``kernel``  — the hand-written probe kernel against its plain torch
+   from the sources in this checkout, one ``nvcc`` per source, all started
+   together (registers / shared memory from ptxas).
+3. ``kernel``  — the bucketed probe kernel against its plain torch
    version on the card, exactly, on a case list (key widths 1/2/4/126,
    empty sides, all-duplicate keys, all-equal prune keys, forced
    ``fp = key % 4`` collisions, int32 extremes, ragged tiles) and on one
@@ -20,12 +20,28 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    the 1-ROUND plan at 2**log2-rows rows per relation and the GREEDY plan
    (MSJ + EVAL) at half of that, each with ``probe_backend="auto"``
    (every MSJ job must resolve to the kernel) and ``"sorted"``; outputs
-   and counters must be bit-identical, and the kernel's launch counter,
-   set to 0 before the measured ``auto`` runs, must be > 0 after.  One
-   more ``auto`` run with a synchronizing tracer splits the wall into the
-   operators' phases (count, shuffle, probe, scatter, EVAL).
-5. ``oracle``  — the quickstart query on the card under PAR / GREEDY /
-   1-ROUND, set-equal to the set-semantics oracle ``ref_engine``.
+   and counters must be bit-identical.  Every kernel's launch counter is
+   set to 0 just before the measured ``auto`` run of a path and read just
+   after; each kernel of the path must have launched.  One more ``auto``
+   run with a synchronizing tracer splits the wall into the operators'
+   phases (count, bloom, shuffle, probe, scatter, EVAL).
+5. ``bloom``   — the bloom build and probe kernels against their plain
+   versions, exactly, on a case list (bits 128 to 2**24; 0, 1 and ragged
+   row counts; all rows inactive; every row on one bit; positions at the
+   last bit) and on shard 0's inputs captured from the bloom run below;
+   times kernel, plain version and the one-call torch yardstick there.
+   Then ``e2e`` ``one_round_bloom``: the 1-ROUND plan on the GREEDY
+   phase's database with ``bloom_bits`` = one bit per guard row, held
+   bit-identical between ``auto`` and ``sorted`` and equal in outputs and
+   forward capacity (and no larger in forward bytes) to ``bloom_bits=0``.
+6. ``blocked`` — the unbucketed all-pairs probe kernel against its plain
+   version and the dense oracle on a case list, timed at shard 0's inputs
+   of an MSJ run at 2**20 rows per relation; then that run with
+   ``probe_fn`` = the all-pairs probe, held bit-identical to the default
+   kernel backend.  (Cut to 2**20: the probe is O(rows**2) per shard.)
+7. ``oracle``  — the quickstart query on the card under PAR / GREEDY /
+   1-ROUND, and 1-ROUND with the bloom prefilter, set-equal to the
+   set-semantics oracle ``ref_engine``.
 
 Then a ``kernels`` JSON line, the raw ``nvidia-smi`` name/power line, and
 as the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -46,6 +62,7 @@ sys.path.insert(0, str(ROOT / "src"))
 DEVICE = "cuda"
 SHARDS = 16  # P of the main path
 REPS = 20  # timed launches per measured kernel
+BLOCKED_LOG2_ROWS = 20  # rows per relation of the all-pairs probe's run
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 
@@ -76,6 +93,34 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def counters() -> dict:
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from repro_torch.kernels.bloom import ops as bloom_ops
+    from repro_torch.kernels.msj_probe import ops
+
+    return {"probe_bucketed": ops.probe_bucketed, "probe_blocked": ops.probe,
+            "bloom_build": bloom_ops.build, "bloom_probe": bloom_ops.probe}
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def bound(in_bytes: int, out_bytes: int, ops: int) -> dict:
+    """The least time the card could take: bytes over HBM rate against
+    scalar operations over the float32 rate outside the tensor cores."""
+    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / SCALAR_OPS_PER_S * 1e3
+    return {"bytes": in_bytes + out_bytes, "ops": ops, "bytes_bound_ms": bytes_ms,
+            "ops_bound_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 # --------------------------------------------------------------------------
@@ -127,19 +172,20 @@ def kernel_cases(gen):
     }
 
 
-def capture_main_path_probe(db, sjs, P):
+def capture_main_path_probe(db, sjs, P, probe_fn=None):
     """One shard's probe_fn inputs from a full-size MSJ run (shard 0)."""
     from repro_torch.core.msj import run_msj
     from repro_torch.engine.comm import SimComm
     from repro_torch.kernels.msj_probe import ops
 
+    probe_fn = probe_fn or ops.probe_bucketed
     seen = []
 
     def capture(*args, **kwargs):
         if not seen:  # copies: views would keep the whole exchange alive
             seen.append((tuple(a.clone() for a in args),
                          {k: v.clone() for k, v in kwargs.items()}))
-        return ops.probe_bucketed(*args, **kwargs)
+        return probe_fn(*args, **kwargs)
 
     run_msj(db, sjs, SimComm(P), probe_fn=capture)
     return seen[0]
@@ -201,32 +247,36 @@ def phase_kernel(main_case) -> dict:
     sides, _ = ops._sides(*args, kwargs.get("build_fp"), kwargs.get("probe_fp"))
     band_ms = cuda_ms(lambda: ops.band_probe_cuda(*sides), REPS)
     build_sig, build_keys, build_ok, probe_sig, probe_keys, probe_ok = args
-    lib_ms = None
-    if build_keys.shape[1] == 1:
-        def packed(sig, keys, ok):
-            v = (sig.to(torch.int64) << 32) | (keys[:, 0].to(torch.int64) & 0xFFFFFFFF)
-            return v[ok]
-
-        bp, pp = packed(build_sig, build_keys, build_ok), packed(probe_sig, probe_keys, probe_ok)
-        lib_ms = cuda_ms(lambda: torch.isin(pp, bp), REPS)
-    in_bytes = unique_bytes(list(args) + list(kwargs.values()))
-    out_bytes = probe_sig.shape[0]  # one bool per probe row
-    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    lib_ms = isin_ms(args)
     pairs = band_pairs(args, kwargs)
-    n_cols = build_keys.shape[1] + 1
-    ops_ms = pairs * n_cols / SCALAR_OPS_PER_S * 1e3
     timing = {
         "np": int(probe_sig.shape[0]), "nb": int(build_sig.shape[0]), "kw": int(build_keys.shape[1]),
         "valid_probe": int(probe_ok.sum()), "valid_build": int(build_ok.sum()),
         "max_abs_err": max_err, "ms": ms, "band_kernel_only_ms": band_ms,
-        "plain_ms": plain_ms, "library_ms": lib_ms,
-        "bytes": in_bytes + out_bytes, "band_pairs": pairs,
-        "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "plain_ms": plain_ms, "library_ms": lib_ms, "band_pairs": pairs,
+        # inputs read once, one bool out per probe row; compares per band pair
+        **bound(unique_bytes(list(args) + list(kwargs.values())), probe_sig.shape[0],
+                pairs * (build_keys.shape[1] + 1)),
     }
     emit({"phase": "kernel_timing", **timing})
     return timing
+
+
+def isin_ms(args):
+    """``torch.isin`` on (sig, key) packed into int64 (KW == 1 only): the
+    one-call yardstick of the probes."""
+    import torch
+
+    build_sig, build_keys, build_ok, probe_sig, probe_keys, probe_ok = args
+    if build_keys.shape[1] != 1:
+        return None
+
+    def packed(sig, keys, ok):
+        v = (sig.to(torch.int64) << 32) | (keys[:, 0].to(torch.int64) & 0xFFFFFFFF)
+        return v[ok]
+
+    bp, pp = packed(build_sig, build_keys, build_ok), packed(probe_sig, probe_keys, probe_ok)
+    return cuda_ms(lambda: torch.isin(pp, bp), REPS)
 
 
 # --------------------------------------------------------------------------
@@ -234,7 +284,7 @@ def phase_kernel(main_case) -> dict:
 # --------------------------------------------------------------------------
 
 
-def run_plan(db, plan, P, backend, tracer=None):
+def run_plan(db, plan, P, backend, tracer=None, bloom_bits=0):
     import torch
 
     from repro_torch.core.executor import Executor, ExecutorConfig
@@ -242,7 +292,8 @@ def run_plan(db, plan, P, backend, tracer=None):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ex = Executor(dict(db), SimComm(P), ExecutorConfig(probe_backend=backend), tracer=tracer)
+    cfg = ExecutorConfig(probe_backend=backend, bloom_bits=bloom_bits)
+    ex = Executor(dict(db), SimComm(P), cfg, tracer=tracer)
     env, report = ex.execute(plan)
     torch.cuda.synchronize()
     return env, report, time.perf_counter() - t0
@@ -259,57 +310,296 @@ def phase_seconds(report) -> dict:
     return out
 
 
-def same_outputs(env_a, env_b, names) -> None:
+def same_outputs(env_a, env_b, names, what="auto and sorted backends") -> None:
     import torch
 
     for k in names:
         if not (torch.equal(env_a[k].data, env_b[k].data)
                 and torch.equal(env_a[k].valid, env_b[k].valid)):
-            raise AssertionError(f"auto and sorted backends differ on {k}")
+            raise AssertionError(f"{what} differ on {k}")
 
 
-def phase_e2e(name, db, plan, P, rows) -> dict:
+def msj_stat(report, key) -> list:
+    from repro_torch.core.planner import MSJJob
+
+    return [r.stats.get(key) for r in report.records if isinstance(r.job, MSJJob)]
+
+
+def phase_e2e(name, db, plan, P, rows, bloom_bits=0) -> dict:
     import torch
 
     from repro_torch.core.planner import MSJJob, job_writes
-    from repro_torch.kernels.msj_probe import ops
 
+    path_kernels = ["probe_bucketed"] + (["bloom_build", "bloom_probe"] if bloom_bits else [])
     outputs = sorted(set().union(*(job_writes(j) for r in plan.rounds for j in r.jobs)))
-    run_plan(db, plan, P, "auto")  # warm
+    run_plan(db, plan, P, "auto", bloom_bits=bloom_bits)  # warm
     torch.cuda.reset_peak_memory_stats()
-    ops.probe_bucketed.launches = 0
-    env_a, rep_a, wall_a = run_plan(db, plan, P, "auto")
-    launches = ops.probe_bucketed.launches
+    reset_counts()
+    env_a, rep_a, wall_a = run_plan(db, plan, P, "auto", bloom_bits=bloom_bits)
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     msj_backends = [r.backend for r in rep_a.records if isinstance(r.job, MSJJob)]
     if not msj_backends or any(b != "kernel" for b in msj_backends):
         raise AssertionError(f"{name}: auto resolved to {msj_backends}, not the kernel")
-    if launches <= 0:
-        raise AssertionError(f"{name}: the probe kernel was never launched")
+    idle = [k for k in path_kernels if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"{name}: kernels of the path never launched: {idle}")
     # the sorted reference path: compare the measured auto run's outputs
     # first, then free them before the sorted runs
-    run_plan(db, plan, P, "sorted")  # warm
-    env_s, rep_s, wall_s = run_plan(db, plan, P, "sorted")
+    run_plan(db, plan, P, "sorted", bloom_bits=bloom_bits)  # warm
+    env_s, rep_s, wall_s = run_plan(db, plan, P, "sorted", bloom_bits=bloom_bits)
     same_outputs(env_a, env_s, outputs)
     stats_a = [r.stats for r in rep_a.records]
     if stats_a != [r.stats for r in rep_s.records]:
         raise AssertionError(f"{name}: auto and sorted counters differ")
+    del env_s
+    without = {}
+    if bloom_bits:
+        # the prefilter changes traffic, never results or the count-sized cap
+        env_0, rep_0, wall_0 = run_plan(db, plan, P, "auto")
+        same_outputs(env_a, env_0, outputs, "bloom and no-bloom runs")
+        fwd, fwd_0 = msj_stat(rep_a, "bytes_fwd"), msj_stat(rep_0, "bytes_fwd")
+        if any(a > b for a, b in zip(fwd, fwd_0)):
+            raise AssertionError(f"{name}: the prefilter added forward bytes: {fwd} > {fwd_0}")
+        if msj_stat(rep_a, "forward_cap") != msj_stat(rep_0, "forward_cap"):
+            raise AssertionError(f"{name}: the prefilter changed the forward capacity")
+        without = {"wall_no_bloom_s": wall_0, "bytes_shuffled_no_bloom": rep_0.bytes_shuffled(),
+                   "bytes_fwd": fwd, "bytes_fwd_no_bloom": fwd_0,
+                   "sent_fwd": msj_stat(rep_a, "sent_fwd"),
+                   "sent_fwd_no_bloom": msj_stat(rep_0, "sent_fwd")}
+        del env_0
     out_rows = {k: int(env_a[k].count()) for k in outputs}
-    del env_a, env_s
+    del env_a
     from repro_torch.obs.tracer import Tracer
 
-    _, rep_t, wall_t = run_plan(db, plan, P, "auto", tracer=Tracer(trace_sync=True))
+    _, rep_t, wall_t = run_plan(db, plan, P, "auto", tracer=Tracer(trace_sync=True),
+                                bloom_bits=bloom_bits)
     result = {
         "phase": "e2e", "plan": name, "rows_per_relation": rows, "P": P,
-        "jobs": rep_a.n_jobs, "msj_backends": msj_backends, "launches": launches,
-        "wall_auto_s": wall_a, "wall_sorted_s": wall_s,
-        "bytes_shuffled": rep_a.bytes_shuffled(),
+        "bloom_bits": bloom_bits, "jobs": rep_a.n_jobs, "msj_backends": msj_backends,
+        "launches": launches, "wall_auto_s": wall_a, "wall_sorted_s": wall_s,
+        "bytes_shuffled": rep_a.bytes_shuffled(), **without,
         "forward_cap": [r.stats.get("forward_cap") for r in rep_a.records],
         "output_rows": out_rows, "peak_mem_bytes": peak, "bit_identical": True,
         "traced_wall_s": wall_t, "phase_s": phase_seconds(rep_t),
     }
     emit(result)
     return result
+
+
+# --------------------------------------------------------------------------
+# phase 5: the bloom prefilter's kernels
+# --------------------------------------------------------------------------
+
+
+def capture_bloom_inputs(db, sjs, P, bits):
+    """Shard 0's inputs of the bloom build kernel and of the first bloom
+    probe from one MSJ run with the prefilter: ``((pos, mask, nw), (pos,
+    filt))``, copied."""
+    import torch
+
+    from repro_torch.core.msj import run_msj
+    from repro_torch.engine.comm import SimComm
+    from repro_torch.kernels.bloom import ops as bloom_ops
+    from repro_torch.kernels.msj_probe import ops
+
+    real = {"build_cuda": bloom_ops.build_cuda, "probe_cuda": bloom_ops.probe_cuda}
+    seen = {}
+
+    def recording(name):
+        def launch(*a):
+            if name not in seen:
+                seen[name] = tuple(x.clone() if torch.is_tensor(x) else x for x in a)
+            return real[name](*a)
+        return launch
+
+    try:
+        for name in real:
+            setattr(bloom_ops, name, recording(name))
+        run_msj(db, sjs, SimComm(P), bloom_bits=bits, probe_fn=ops.probe_bucketed)
+    finally:
+        for name, fn in real.items():
+            setattr(bloom_ops, name, fn)
+    return seen["build_cuda"], seen["probe_cuda"]
+
+
+def bloom_cases(gen) -> dict:
+    """``name -> (pos, mask, n_words)`` on the card."""
+    import torch
+
+    from repro_torch.kernels.bloom import ops as bloom_ops
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int64,
+                             device=DEVICE).to(torch.int32)
+
+    cases = {}
+    for bits in (128, 1000, 2**16, 2**20, 2**24):
+        for n in (0, 1, 1000, 70_001):
+            keys, sigs = ints(-(2**31), 2**31, n, 1), ints(0, 4, n)
+            fp = keys[:, 0] if n % 2 else None
+            mask = torch.rand(n, generator=gen, device=DEVICE) < 0.6
+            cases[f"bits{bits}_n{n}"] = (bloom_ops.positions(keys, sigs, bits, fp=fp), mask,
+                                         bloom_ops.n_words(bits))
+    n, nw = 50_000, bloom_ops.n_words(2**24)
+    last = nw * bloom_ops.LANES - 1
+    pos = ints(0, last + 1, n, 2)
+    ones = torch.ones(n, dtype=torch.bool, device=DEVICE)
+    at_last = pos.clone()
+    at_last[::3] = last
+    cases["all_inactive"] = (pos, torch.zeros_like(ones), nw)
+    cases["one_bit"] = (torch.full_like(pos, 77), ones, nw)
+    cases["last_bit"] = (at_last, ones, nw)
+    return cases
+
+
+def bloom_check(pos, mask, nw) -> int:
+    """Build and probe on the card against their plain versions, exactly;
+    the probe also against a filter of every other active row, so that it
+    answers both ways.  Returns the max |diff| (0 or it raises)."""
+    import torch
+
+    from repro_torch.kernels.bloom import ops as bloom_ops
+
+    half = mask & (torch.arange(mask.shape[0], device=mask.device) % 2 == 0)
+    err = 0
+    for m in (mask, half):
+        filt = bloom_ops.build_cuda(pos, m, nw)
+        want = bloom_ops.build_plain(pos, m, nw)
+        found = bloom_ops.probe_cuda(pos, filt)
+        want_found = bloom_ops.probe_plain(pos, filt)
+        torch.cuda.synchronize()
+        for a, b in ((filt, want), (found.to(torch.int32), want_found.to(torch.int32))):
+            if a.numel():
+                err = max(err, int((a - b).abs().max()))
+        if not (torch.equal(filt, want) and torch.equal(found, want_found)) or err:
+            raise AssertionError(f"bloom kernel != plain: max |diff| {err}")
+        if not bool(found[m].all()):
+            raise AssertionError("bloom probe kernel: a false negative")
+    return err
+
+
+def phase_bloom_kernels(build_in, probe_in) -> dict:
+    import torch
+
+    from repro_torch.kernels.bloom import ops as bloom_ops
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2345)
+    cases = bloom_cases(gen)
+    cases["main_path_shard0"] = build_in
+    checked, max_err = {}, 0
+    for name, (pos, mask, nw) in cases.items():
+        max_err = max(max_err, bloom_check(pos, mask, nw))
+        checked[name] = {"n": int(pos.shape[0]), "bits": nw * bloom_ops.LANES,
+                         "active": int(mask.sum())}
+    # the probe's own main-path inputs: the OR of all shards' filters
+    pos, filt = probe_in
+    found = bloom_ops.probe_cuda(pos, filt)
+    if not torch.equal(found, bloom_ops.probe_plain(pos, filt)):
+        raise AssertionError("bloom probe kernel != plain on the main-path probe inputs")
+    emit({"phase": "bloom_check", "cases": checked, "max_abs_err": max_err})
+
+    pos_b, mask_b, nw = build_in
+    nbits = nw * bloom_ops.LANES
+    build_t = {
+        "n": int(pos_b.shape[0]), "active": int(mask_b.sum()), "bits": nbits,
+        "max_abs_err": max_err,
+        "ms": cuda_ms(lambda: bloom_ops.build_cuda(pos_b, mask_b, nw), REPS),
+        "plain_ms": cuda_ms(lambda: bloom_ops.build_plain(pos_b, mask_b, nw), REPS // 5),
+        "library_ms": cuda_ms(lambda: torch.zeros(nbits, dtype=torch.int32, device=DEVICE)
+                              .scatter_(0, pos_b[mask_b].reshape(-1).long(), 1), REPS),
+        # positions and mask read once, the whole filter written once
+        **bound(pos_b.numel() * 4 + mask_b.numel(), nbits * 4, 2 * int(mask_b.sum())),
+    }
+    flat = filt.reshape(-1)
+    probe_t = {
+        "n": int(pos.shape[0]), "bits": int(filt.numel()), "max_abs_err": max_err,
+        "bits_set": int((filt > 0).sum()), "found": int(found.sum()),
+        "ms": cuda_ms(lambda: bloom_ops.probe_cuda(pos, filt), REPS),
+        "plain_ms": cuda_ms(lambda: bloom_ops.probe_plain(pos, filt), REPS // 5),
+        "library_ms": cuda_ms(lambda: torch.take(flat, pos.long()).all(1), REPS),
+        # positions read once, each distinct filter word it needs once, one
+        # bool out per row; two compares per row
+        **bound(pos.numel() * 4 + torch.unique(pos).numel() * 4, pos.shape[0],
+                2 * pos.shape[0]),
+    }
+    emit({"phase": "bloom_timing", "build": build_t, "probe": probe_t})
+    return {"bloom_build": build_t, "bloom_probe": probe_t}
+
+
+# --------------------------------------------------------------------------
+# phase 6: the unbucketed all-pairs probe
+# --------------------------------------------------------------------------
+
+
+def phase_blocked(db, sjs, P, rows):
+    import torch
+
+    from repro_torch.core.msj import run_msj
+    from repro_torch.engine.comm import SimComm
+    from repro_torch.kernels.msj_probe import ops, ref
+
+    gen = torch.Generator(device=DEVICE).manual_seed(4321)
+    cases = kernel_cases(gen)
+    main_case = capture_main_path_probe(db, sjs, P, probe_fn=ops.probe)
+    cases["main_path_shard0"] = main_case
+    checked, max_err = {}, 0
+    for name, (args, kwargs) in cases.items():
+        got = ops.probe(*args, **kwargs)
+        want = ops.probe_blocked_plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max()) if got.numel() else 0
+        if not torch.equal(got, want) or err != 0:
+            raise AssertionError(f"blocked kernel != plain on case {name}: max |diff| {err}")
+        if name != "main_path_shard0" and args[0].shape[0] * args[3].shape[0] <= 4e7:
+            if not torch.equal(got, ref.probe(*args)):
+                raise AssertionError(f"blocked kernel != dense oracle on case {name}")
+        checked[name] = {"np": int(args[3].shape[0]), "nb": int(args[0].shape[0]),
+                         "kw": int(args[1].shape[1]), "hits": int(got.sum())}
+    emit({"phase": "blocked_check", "cases": checked, "max_abs_err": max_err})
+
+    args, kwargs = main_case
+    build_sig, build_keys, build_ok, probe_sig, probe_keys, probe_ok = args
+    n_valid_p, n_valid_b = int(probe_ok.sum()), int(build_ok.sum())
+    timing = {
+        "np": int(probe_sig.shape[0]), "nb": int(build_sig.shape[0]),
+        "kw": int(build_keys.shape[1]), "valid_probe": n_valid_p, "valid_build": n_valid_b,
+        "max_abs_err": max_err,
+        "ms": cuda_ms(lambda: ops.probe(*args, **kwargs), REPS),
+        "plain_ms": cuda_ms(lambda: ops.probe_blocked_plain(*args, **kwargs), 2),
+        "library_ms": isin_ms(args),
+        # inputs read once, one bool out per probe row; every (valid probe,
+        # valid build) pair compared on each of the KW + 1 key words
+        **bound(unique_bytes(list(args)), probe_sig.shape[0],
+                n_valid_p * n_valid_b * (build_keys.shape[1] + 1)),
+    }
+    emit({"phase": "blocked_timing", **timing})
+    del main_case, args, kwargs, cases
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out_b, st_b = run_msj(db, sjs, SimComm(P), probe_fn=ops.probe)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if launches["probe_blocked"] <= 0:
+        raise AssertionError("blocked_probe: the all-pairs kernel was never launched")
+    t0 = time.perf_counter()
+    out_k, st_k = run_msj(db, sjs, SimComm(P), probe_fn=ops.probe_bucketed)
+    torch.cuda.synchronize()
+    wall_k = time.perf_counter() - t0
+    same_outputs(out_b, out_k, sorted(out_k), "all-pairs and bucketed probes")
+    stats = {k: int(v) for k, v in st_b.items()}
+    if stats != {k: int(v) for k, v in st_k.items()}:
+        raise AssertionError("blocked_probe: all-pairs and bucketed counters differ")
+    result = {"phase": "e2e", "plan": "blocked_probe", "rows_per_relation": rows, "P": P,
+              "launches": launches, "wall_blocked_s": wall_b, "wall_bucketed_s": wall_k,
+              "peak_mem_bytes": peak, "stats": stats, "bit_identical": True}
+    emit(result)
+    return timing, result
 
 
 # --------------------------------------------------------------------------
@@ -323,7 +613,7 @@ def phase_oracle() -> None:
     from repro_torch.core import ref_engine
     from repro_torch.core.algebra import And, Atom, BSGF, Or
     from repro_torch.core.costmodel import HADOOP, stats_of_db
-    from repro_torch.core.executor import execute_plan
+    from repro_torch.core.executor import ExecutorConfig, execute_plan
     from repro_torch.core.planner import plan_greedy, plan_one_round, plan_par
     from repro_torch.core.relation import db_from_dict
     from repro_torch.engine.comm import SimComm
@@ -343,10 +633,11 @@ def phase_oracle() -> None:
     if any(r.data.device.type != DEVICE for r in db.values()):
         raise AssertionError("oracle: the default device is not the card")
     plans = {"par": plan_par([query]), "greedy": plan_greedy([query], stats_of_db(db), HADOOP),
-             "one_round": plan_one_round([query])}
+             "one_round": plan_one_round([query]), "one_round_bloom": plan_one_round([query])}
     got = {}
     for name, plan in plans.items():
-        env, report = execute_plan(db, plan, SimComm(P))
+        cfg = ExecutorConfig(bloom_bits=4096 if name.endswith("bloom") else 0)
+        env, report = execute_plan(db, plan, SimComm(P), cfg)
         z = env["Z"].to_set()
         if z != want:
             raise AssertionError(f"oracle: {name} plan disagrees with ref_engine")
@@ -376,7 +667,6 @@ def main() -> int:
     from repro_torch.core.planner import plan_greedy, plan_one_round
     from repro_torch.core.relation import db_from_dict
     from repro_torch.kernels import build
-    from repro_torch.kernels.msj_probe import ops
 
     t_start = time.perf_counter()
     smi = nvidia_smi()
@@ -386,7 +676,7 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    logs = {src.name: build.build(src) for src in build.sources()}
+    logs = build.build_all()
     ptxas = {name: [ln.strip() for ln in log.splitlines() if "ptxas info" in ln]
              for name, log in logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -417,25 +707,49 @@ def main() -> int:
     gdb = db_from_dict(queries.gen_db(qs, n_guard=g_rows, n_cond=g_rows, sel=0.5,
                                       seed=args.seed), P=P)
     e2e.append(phase_e2e("greedy", gdb, plan_greedy(qs, stats_of_db(gdb), HADOOP), P, g_rows))
+
+    # the bloom prefilter on the same database, one bit per guard row
+    bloom_bits = g_rows
+    build_in, probe_in = capture_bloom_inputs(gdb, sjs, P, bloom_bits)
+    timings = {"probe_bucketed": timing, **phase_bloom_kernels(build_in, probe_in)}
+    del build_in, probe_in
+    e2e.append(phase_e2e("one_round_bloom", gdb, plan_one_round(qs), P, g_rows,
+                         bloom_bits=bloom_bits))
     del gdb
+    torch.cuda.empty_cache()
+
+    # the all-pairs probe is O(rows**2) per shard: its run is cut in rows
+    b_rows = 2 ** min(BLOCKED_LOG2_ROWS, args.log2_rows)
+    bdb = db_from_dict(queries.gen_db(qs, n_guard=b_rows, n_cond=b_rows, sel=0.5,
+                                      seed=args.seed), P=P)
+    timings["probe_blocked"], blocked = phase_blocked(bdb, sjs, P, b_rows)
+    e2e.append(blocked)
+    del bdb
     torch.cuda.empty_cache()
 
     phase_oracle()
 
-    emit({"kernels": [{
-        "name": "probe_bucketed",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/msj_probe/csrc/probe_bucketed.cu",
-        "replaces": "src/repro/kernels/msj_probe/kernel.py:110",
-        "launches": sum(r["launches"] for r in e2e),
-        "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
-        "shape": {"np": timing["np"], "nb": timing["nb"], "kw": timing["kw"]},
-    }], "seconds_total": time.perf_counter() - t_start})
+    sources = {
+        "probe_bucketed": ("src/repro_torch/kernels/msj_probe/csrc/probe_bucketed.cu",
+                           "src/repro/kernels/msj_probe/kernel.py:110"),
+        "probe_blocked": ("src/repro_torch/kernels/msj_probe/csrc/probe_bucketed.cu",
+                          "src/repro/kernels/msj_probe/kernel.py:148"),
+        "bloom_build": ("src/repro_torch/kernels/bloom/csrc/bloom.cu",
+                        "src/repro/kernels/bloom/kernel.py:85"),
+        "bloom_probe": ("src/repro_torch/kernels/bloom/csrc/bloom.cu",
+                        "src/repro/kernels/bloom/kernel.py:106"),
+    }
+    kernels = []
+    for name, (source, replaces) in sources.items():
+        t = timings[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(r["launches"][name] for r in e2e),
+            **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+            "shape": {k: t[k] for k in ("np", "nb", "kw", "n", "bits") if k in t},
+        })
+    emit({"kernels": kernels, "seconds_total": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

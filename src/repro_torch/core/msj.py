@@ -53,6 +53,7 @@ from repro_torch.core.algebra import Cond, SemiJoin, eval_cond
 from repro_torch.core.relation import Relation
 from repro_torch.engine import hashing, shuffle
 from repro_torch.engine.comm import Comm, run_pipeline
+from repro_torch.kernels.bloom import ops as bloom_ops
 
 KIND_ASSERT = 0
 KIND_REQ = 1
@@ -729,23 +730,14 @@ class XferBuffer:
         return f"XferBuffer({self.name}, cap={self.cap}, n_sj={len(self.sjs)})"
 
 
-def _no_bloom(bloom_bits: int) -> None:
-    if bloom_bits > 0:
-        raise NotImplementedError(
-            "bloom_bits > 0 needs the bloom prefilter kernels, which the "
-            "port does not have yet (ROADMAP.md Queue 1 item 7, the bloom "
-            "path); run with bloom_bits=0"
-        )
-
-
 class _MSJKit:
     """The MSJ operator's stage closures over one (spec, db, cap) triple.
 
     :func:`run_msj` composes all stages into one pipeline; the overlap
-    path runs ``[map]`` in :func:`run_msj_transfer` and ``[probe, out]`` in
-    :func:`run_msj_compute` against the *same* kit parameters, so split and
-    unsplit execution are stage-for-stage identical and therefore
-    bit-identical.
+    path runs ``[bloom?, map]`` in :func:`run_msj_transfer` and
+    ``[probe, out]`` in :func:`run_msj_compute` against the *same* kit
+    parameters, so split and unsplit execution are stage-for-stage
+    identical and therefore bit-identical.
     """
 
     def __init__(
@@ -769,6 +761,7 @@ class _MSJKit:
         # callers pass the already-normalized route (SkewRoute.live); the
         # probe/out stages never consult it — only stage_map routes
         self.skew = skew
+        self.use_bloom = use_bloom = bloom_bits > 0
         P = comm.P
         KW = spec.key_width
         layout = make_layout(spec, db, P)
@@ -807,8 +800,44 @@ class _MSJKit:
                 cols += [src_col, rows]
             return torch.stack(cols, dim=1)
 
+        # ---------------- stage 0 (optional): bloom prefilter ----------------
+        # Build a per-shard bloom filter over Assert keys, all-reduce(OR) it, and
+        # drop Req messages whose key cannot match — trades one small all-reduce
+        # for forward-shuffle bytes (beyond-paper; see DESIGN.md §7).
+        def _assert_keys(local_db):
+            akeys, asigs, amask, afp = [], [], [], []
+            for s_id, sig in enumerate(spec.sigs):
+                rel = local_db[sig.rel]
+                conf, keys, fp, _ = _map_source(spec, P, rel, sig.pattern, sig.keypos, s_id)
+                akeys.append(keys)
+                asigs.append(torch.full((rel.cap,), s_id, dtype=torch.int32, device=dev))
+                amask.append(conf)
+                if fingerprint:
+                    afp.append(fp)
+            return (
+                torch.cat(akeys, 0),
+                torch.cat(asigs, 0),
+                torch.cat(amask, 0),
+                torch.cat(afp, 0) if fingerprint else None,
+            )
+
+        def stage_bloom(sid, local_db):
+            keys, sigs_arr, mask, fp = _assert_keys(local_db)
+            words = bloom_ops.build(keys, sigs_arr, mask, bloom_bits, fp=fp)
+            # broadcast-by-all_to_all: every destination receives our words;
+            # the next stage ORs over sources == an all-reduce(OR).  The
+            # broadcast stays a view: the exchange copies it into the
+            # received buffer once
+            bcast = words[None].expand((P,) + tuple(words.shape))
+            return (bcast,), local_db
+
         # ---------------- stage 1: map + forward partition ----------------
-        def stage_map(sid, local_db):
+        def stage_map(sid, carry_in):
+            if use_bloom:
+                (recv_words,), local_db = carry_in
+                bloom_words = recv_words.amax(dim=0)  # OR-reduce over sources
+            else:
+                local_db, bloom_words = carry_in, None
             msgs_list, valid_list, dest_list = [], [], []
             conf_by_sj, rep_by_sj = [], []
             rep_count = torch.zeros((), dtype=torch.int32, device=dev)
@@ -822,6 +851,13 @@ class _MSJKit:
                 )
                 conf_by_sj.append(conf)
                 send = conf
+                if use_bloom:
+                    # before the packing dedup, so leaders match the reference
+                    sig_col = torch.full((rel.cap,), info.sig_id, dtype=torch.int32,
+                                         device=dev)
+                    send = send & bloom_ops.probe(
+                        bloom_words, keys, sig_col, bloom_bits, fp=fp
+                    )
                 if packing:
                     is_leader, rep = _dedup(spec, fp, keys, send)
                     rep_by_sj.append(rep)
@@ -876,14 +912,14 @@ class _MSJKit:
             buf, bufvalid, ovf, _counts = shuffle.partition(msgs, valid, dest, P, cap_s)
             carry = (
                 local_db, tuple(conf_by_sj), tuple(rep_by_sj),
-                ovf, send_count, rep_count,
+                ovf, send_count, rep_count, bloom_words,
             )
             return (buf, bufvalid), carry
 
         # ---------------- stage 2: probe + backward partition ----------------
         def stage_probe(sid, args):
             (recv, recv_valid), carry = args
-            local_db, confs, reps, ovf_fwd, sent_fwd, rep_fwd = carry
+            local_db, confs, reps, ovf_fwd, sent_fwd, rep_fwd, _bloom_words = carry
             flat, flat_ok = shuffle.flatten_recv(recv, recv_valid)
             if fingerprint:
                 kindtag = flat[:, 0]
@@ -971,6 +1007,7 @@ class _MSJKit:
             }
             return None, (outputs, stats)
 
+        self.stage_bloom = stage_bloom
         self.stage_map = stage_map
         self.stage_probe = stage_probe
         self.stage_out = stage_out
@@ -1014,19 +1051,20 @@ def run_msj(
     overflow detection + supervisor retry recover correctness).
 
     ``tracer`` (DESIGN.md §14) records the per-phase spans — ``msj.count``
-    (count exchange), ``msj.shuffle.fwd`` (map + forward partition),
-    ``msj.probe``, ``msj.scatter``; ``tracer=None`` (the default) runs the
-    exact untraced path.
+    (count exchange), ``msj.bloom``, ``msj.shuffle.fwd`` (map + forward
+    partition), ``msj.probe``, ``msj.scatter``; ``tracer=None`` (the
+    default) runs the exact untraced path.
 
     ``skew`` (DESIGN.md §17) salts hot Req keys across R sub-shards and
     replicates the matching builds; exactness is unchanged (every Req
     reaches exactly one reducer, duplicate builds cannot flip an
     existence bit), so results are bit-identical with or without it.
 
-    ``bloom_bits > 0`` raises ``NotImplementedError``: the bloom
-    prefilter is not ported yet.
+    ``bloom_bits > 0`` adds the bloom prefilter stage (DESIGN.md §7): on
+    the card its build and probe are the CUDA kernels of
+    ``kernels/bloom``.  Outputs are the same with or without it; only
+    ``sent_fwd``/``bytes_fwd`` (and what follows from them) can shrink.
     """
-    _no_bloom(bloom_bits)
     spec = make_spec(sjs, fingerprint=fingerprint)
     if skew is not None:
         skew = skew.live(packing=packing, P=comm.P)
@@ -1042,8 +1080,12 @@ def run_msj(
         packing=packing, fused=fused, probe_fn=probe_fn,
         bloom_bits=bloom_bits, fingerprint=fingerprint, skew=skew,
     )
-    stages = [kit.stage_map, kit.stage_probe, kit.stage_out]
-    names = ["msj.shuffle.fwd", "msj.probe", "msj.scatter"]
+    stages = ([kit.stage_bloom] if kit.use_bloom else []) + [
+        kit.stage_map, kit.stage_probe, kit.stage_out,
+    ]
+    names = (["msj.bloom"] if kit.use_bloom else []) + [
+        "msj.shuffle.fwd", "msj.probe", "msj.scatter",
+    ]
     phase_spans = tracer.current() if traced else []
     base = len(phase_spans)
     outputs, stats = run_pipeline(comm, stages, kit.stacked, tracer=tracer, names=names)
@@ -1101,7 +1143,6 @@ def run_msj_transfer(
     in this half — the compute half probes whatever landed, so a skew
     transfer pairs with an unmodified :func:`run_msj_compute`.
     """
-    _no_bloom(bloom_bits)
     spec = make_spec(sjs, fingerprint=fingerprint)
     if skew is not None:
         skew = skew.live(packing=packing, P=comm.P)
@@ -1119,8 +1160,9 @@ def run_msj_transfer(
     )
     phase_spans = tracer.current() if traced else []
     base = len(phase_spans)
-    carry = run_pipeline(comm, [kit.stage_map], kit.stacked, tracer=tracer,
-                         names=["msj.xfer"])
+    stages = ([kit.stage_bloom] if kit.use_bloom else []) + [kit.stage_map]
+    names = (["msj.bloom"] if kit.use_bloom else []) + ["msj.xfer"]
+    carry = run_pipeline(comm, stages, kit.stacked, tracer=tracer, names=names)
     # carry == ((recv, recv_valid), map_carry); the map carry holds the
     # per-shard forward overflow + send/replica-count scalars at fixed
     # positions

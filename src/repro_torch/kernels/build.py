@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
@@ -68,6 +69,16 @@ def build(src: Path) -> str:
         raise RuntimeError(f"nvcc failed for {src.name} (exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
     return log
+
+
+def build_all() -> dict[str, str]:
+    """Compile every source at once, one ``nvcc`` per source, all started
+    together.  Returns each source's nvcc output by file name; raises the
+    first failure."""
+    srcs = sources()
+    with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
+        logs = list(pool.map(build, srcs))
+    return {src.name: log for src, log in zip(srcs, logs)}
 
 
 @functools.lru_cache(maxsize=None)

@@ -31,6 +31,10 @@
 // the bands the MSJ path produces the traffic dominates at HBM bandwidth.
 // The simple design leaves the band re-reads to L2; TMA staging, warp
 // specialisation and one launch over all P shards are later work.
+//
+// The file also holds probe_blocked_kernel, the unbucketed all-pairs probe
+// (ops.probe, the reference's probe_blocked), which shares the chunked
+// walk over build rows (walk_build) with a band of every build row.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,38 +64,16 @@ __device__ __forceinline__ int64_t upper_bound(const int32_t* __restrict__ a,
   return lo;
 }
 
-__global__ void __launch_bounds__(TILE)
-probe_bucketed_kernel(const int32_t* __restrict__ pkeys,
-                      const int32_t* __restrict__ ppk,
-                      const uint8_t* __restrict__ pok,
-                      const int32_t* __restrict__ bkeys,
-                      const int32_t* __restrict__ bpk,
-                      const uint8_t* __restrict__ bok,
-                      int64_t np, int64_t nb, int n_cols, int chunk,
-                      uint8_t* __restrict__ hits) {
-  extern __shared__ int32_t smem[];  // chunk * n_cols key words, chunk ok words
-  __shared__ int64_t band[2];
-
-  const int64_t t0 = (int64_t)blockIdx.x * TILE;
-  const int64_t last = (t0 + TILE < np ? t0 + TILE : np) - 1;
-  const int64_t row = t0 + threadIdx.x;
-
-  if (threadIdx.x == 0) {
-    const int32_t hi = ppk[last];
-    if (hi < 0) {  // the whole tile is invalid probe rows
-      band[0] = 0;
-      band[1] = 0;
-    } else {
-      const int32_t lo = ppk[t0] < 0 ? 0 : ppk[t0];
-      band[0] = lower_bound(bpk, nb, lo);
-      band[1] = upper_bound(bpk, nb, hi);
-    }
-  }
-  __syncthreads();
-  const int64_t b0 = band[0], b1 = band[1];
-
-  const bool active = row < np && pok[row] != 0 && ppk[row] >= 0;
-  const int32_t* prow = pkeys + (active ? row : 0) * (int64_t)n_cols;
+// Walks the build rows [b0, b1) in shared-memory chunks; returns 1 if a
+// valid one has the n_cols key words of prow, else 0.  Every thread of the
+// block calls it (it holds block barriers); a thread whose row is not
+// active only helps load.  The walk ends once every active row has a hit.
+__device__ __forceinline__ int walk_build(const int32_t* __restrict__ bkeys,
+                                          const uint8_t* __restrict__ bok,
+                                          int64_t b0, int64_t b1, int n_cols,
+                                          int chunk, bool active,
+                                          const int32_t* __restrict__ prow,
+                                          int32_t* smem) {
   const int32_t p0 = active ? prow[0] : 0;
   const int32_t p1 = (active && n_cols > 1) ? prow[1] : 0;
 
@@ -125,25 +107,105 @@ probe_bucketed_kernel(const int32_t* __restrict__ pkeys,
       }
     }
   }
+  return hit;
+}
+
+__global__ void __launch_bounds__(TILE)
+probe_bucketed_kernel(const int32_t* __restrict__ pkeys,
+                      const int32_t* __restrict__ ppk,
+                      const uint8_t* __restrict__ pok,
+                      const int32_t* __restrict__ bkeys,
+                      const int32_t* __restrict__ bpk,
+                      const uint8_t* __restrict__ bok,
+                      int64_t np, int64_t nb, int n_cols, int chunk,
+                      uint8_t* __restrict__ hits) {
+  extern __shared__ int32_t smem[];  // chunk * n_cols key words, chunk ok words
+  __shared__ int64_t band[2];
+
+  const int64_t t0 = (int64_t)blockIdx.x * TILE;
+  const int64_t last = (t0 + TILE < np ? t0 + TILE : np) - 1;
+  const int64_t row = t0 + threadIdx.x;
+
+  if (threadIdx.x == 0) {
+    const int32_t hi = ppk[last];
+    if (hi < 0) {  // the whole tile is invalid probe rows
+      band[0] = 0;
+      band[1] = 0;
+    } else {
+      const int32_t lo = ppk[t0] < 0 ? 0 : ppk[t0];
+      band[0] = lower_bound(bpk, nb, lo);
+      band[1] = upper_bound(bpk, nb, hi);
+    }
+  }
+  __syncthreads();
+
+  const bool active = row < np && pok[row] != 0 && ppk[row] >= 0;
+  const int32_t* prow = pkeys + (active ? row : 0) * (int64_t)n_cols;
+  const int hit = walk_build(bkeys, bok, band[0], band[1], n_cols, chunk, active,
+                             prow, smem);
   if (row < np) hits[row] = (uint8_t)hit;
 }
 
-// Plain C entry point (loaded with ctypes).  Pointers are device pointers;
-// stream is the caller's cudaStream_t.  Returns cudaGetLastError() after
-// the launch (0 = launched).  The caller guarantees np > 0 and nb > 0.
+// The unbucketed all-pairs probe (replaces the Pallas TPU kernel
+// src/repro/kernels/msj_probe/kernel.py:148, probe_blocked, body
+// _probe_kernel): the same walk over every build row [0, nb) of unsorted
+// input, with no prune keys.  O(NP * NB) compares: operations, not bytes,
+// bound it at any size the MSJ path gives it.  The design keeps each
+// compare to one broadcast shared-memory read and one integer compare per
+// (probe row, build row) for the first key word, skips warps with no
+// active row, and stops a block once all its rows have hit; loading
+// several probe rows per thread to reuse each read is later work.
+__global__ void __launch_bounds__(TILE)
+probe_blocked_kernel(const int32_t* __restrict__ pkeys,
+                     const uint8_t* __restrict__ pok,
+                     const int32_t* __restrict__ bkeys,
+                     const uint8_t* __restrict__ bok,
+                     int64_t np, int64_t nb, int n_cols, int chunk,
+                     uint8_t* __restrict__ hits) {
+  extern __shared__ int32_t smem[];
+  const int64_t row = (int64_t)blockIdx.x * TILE + threadIdx.x;
+  const bool active = row < np && pok[row] != 0;
+  const int32_t* prow = pkeys + (active ? row : 0) * (int64_t)n_cols;
+  const int hit = walk_build(bkeys, bok, 0, nb, n_cols, chunk, active, prow, smem);
+  if (row < np) hits[row] = (uint8_t)hit;
+}
+
+// Rows of build keys per shared-memory chunk, for n_cols key words a row.
+static int chunk_rows(int n_cols) {
+  const int chunk = SMEM_WORDS / (n_cols + 1);
+  return chunk > 2048 ? 2048 : chunk;
+}
+
+// Plain C entry points (loaded with ctypes).  Pointers are device
+// pointers; stream is the caller's cudaStream_t.  Each returns
+// cudaGetLastError() after its launch (0 = launched).  The caller
+// guarantees np > 0 and nb > 0.
 extern "C" int probe_bucketed_launch(const void* pkeys, const void* ppk,
                                      const void* pok, const void* bkeys,
                                      const void* bpk, const void* bok,
                                      int64_t np, int64_t nb, int n_cols,
                                      void* hits, void* stream) {
   if (np <= 0 || nb <= 0 || n_cols < 1) return (int)cudaErrorInvalidValue;
-  int chunk = SMEM_WORDS / (n_cols + 1);
-  if (chunk > 2048) chunk = 2048;
+  const int chunk = chunk_rows(n_cols);
   const size_t smem = (size_t)chunk * (n_cols + 1) * sizeof(int32_t);
   const int64_t grid = (np + TILE - 1) / TILE;
   probe_bucketed_kernel<<<(unsigned int)grid, TILE, smem, (cudaStream_t)stream>>>(
       (const int32_t*)pkeys, (const int32_t*)ppk, (const uint8_t*)pok,
       (const int32_t*)bkeys, (const int32_t*)bpk, (const uint8_t*)bok, np, nb,
       n_cols, chunk, (uint8_t*)hits);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int probe_blocked_launch(const void* pkeys, const void* pok,
+                                    const void* bkeys, const void* bok,
+                                    int64_t np, int64_t nb, int n_cols,
+                                    void* hits, void* stream) {
+  if (np <= 0 || nb <= 0 || n_cols < 1) return (int)cudaErrorInvalidValue;
+  const int chunk = chunk_rows(n_cols);
+  const size_t smem = (size_t)chunk * (n_cols + 1) * sizeof(int32_t);
+  const int64_t grid = (np + TILE - 1) / TILE;
+  probe_blocked_kernel<<<(unsigned int)grid, TILE, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)pkeys, (const uint8_t*)pok, (const int32_t*)bkeys,
+      (const uint8_t*)bok, np, nb, n_cols, chunk, (uint8_t*)hits);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
-"""The bucketed MSJ probe: a CUDA kernel for the card and its plain torch
-version, behind the engine's ``probe_fn`` interface.
+"""The MSJ probes: CUDA kernels for the card and their plain torch
+versions, behind the engine's ``probe_fn`` interface.
 
 ``probe_fn`` signature: ``(build_sig, build_keys, build_ok, probe_sig,
 probe_keys, probe_ok, *, build_fp=None, probe_fp=None) -> hits``, where
@@ -19,10 +19,18 @@ same (signature, key).
   all-pairs compare inside the band.  Tests and ``chip_smoke.py`` hold the
   kernel against it.
 
+* :func:`probe` — the unbucketed all-pairs probe, a drop-in ``probe_fn``
+  for ``run_msj`` kept as the worst-case reference: every valid probe row
+  against every build row, no sort, fingerprints ignored.  On CUDA tensors
+  it launches the second kernel of ``csrc/probe_bucketed.cu`` (which
+  replaces the reference's Pallas kernel ``probe_blocked``); on CPU
+  tensors it takes the plain version, chunked all-pairs in torch
+  (:func:`probe_blocked_plain` on any device).
+
 Matching inside a band is exact on (signature, key), so fingerprint
 collisions — including adversarially colliding ``*_fp`` inputs — only
-widen the band, never change the result.  ``probe_bucketed.launches``
-counts kernel launches.
+widen the band, never change the result.  ``probe_bucketed.launches`` and
+``probe.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -142,15 +150,25 @@ def band_probe_plain(p_cols, p_pk, p_ok, b_cols, b_pk, b_ok) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
+def _launchers():
     from repro_torch.kernels import build
 
-    fn = build.load(SOURCE).probe_bucketed_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = build.load(SOURCE)
+    bucketed, blocked = lib.probe_bucketed_launch, lib.probe_blocked_launch
+    tail = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    bucketed.argtypes = [ctypes.c_void_p] * 6 + tail
+    blocked.argtypes = [ctypes.c_void_p] * 4 + tail
+    bucketed.restype = blocked.restype = ctypes.c_int
+    return bucketed, blocked
+
+
+def _check_inputs(kind, tensors, dev):
+    for t, dt in tensors:
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(
+                f"{kind} kernel input must be a contiguous {dt} tensor on {dev}, "
+                f"got {t.dtype} on {t.device}"
+            )
 
 
 def band_probe_cuda(p_cols, p_pk, p_ok, b_cols, b_pk, b_ok) -> torch.Tensor:
@@ -159,18 +177,14 @@ def band_probe_cuda(p_cols, p_pk, p_ok, b_cols, b_pk, b_ok) -> torch.Tensor:
     NP, n_cols = p_cols.shape
     NB = b_cols.shape[0]
     dev = p_cols.device
-    for t, dt in ((p_cols, torch.int32), (p_pk, torch.int32), (p_ok, torch.bool),
-                  (b_cols, torch.int32), (b_pk, torch.int32), (b_ok, torch.bool)):
-        if t.device != dev or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(
-                f"probe kernel input must be a contiguous {dt} tensor on {dev}, "
-                f"got {t.dtype} on {t.device}"
-            )
+    _check_inputs("probe", ((p_cols, torch.int32), (p_pk, torch.int32), (p_ok, torch.bool),
+                            (b_cols, torch.int32), (b_pk, torch.int32), (b_ok, torch.bool)),
+                  dev)
     if b_cols.shape[1] != n_cols or NP == 0 or NB == 0:
         raise ValueError("probe kernel needs non-empty sides of equal key width")
     hits = torch.empty((NP,), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
-        rc = _launcher()(
+        rc = _launchers()[0](
             p_cols.data_ptr(), p_pk.data_ptr(), p_ok.data_ptr(),
             b_cols.data_ptr(), b_pk.data_ptr(), b_ok.data_ptr(),
             NP, NB, n_cols, hits.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
@@ -215,3 +229,107 @@ def probe_bucketed_plain(
     """:func:`probe_bucketed` with the plain band compare on any device."""
     return _bucketed(band_probe_plain, build_sig, build_keys, build_ok, probe_sig,
                      probe_keys, probe_ok, build_fp, probe_fp)
+
+
+# --------------------------------------------------------------------------
+# the unbucketed all-pairs probe
+# --------------------------------------------------------------------------
+
+
+def allpairs_plain(p_cols, p_ok, b_cols, b_ok) -> torch.Tensor:
+    """Plain torch all-pairs compare (the blocked kernel's contract):
+    ``(NP,) bool``, True where a valid probe row's ``n_cols`` key words
+    equal those of some valid build row.  Chunked so that one step holds
+    at most ``_PLAIN_PAIRS`` (probe row, build row) pairs."""
+    NP, n_cols = p_cols.shape
+    hits = torch.zeros((NP,), dtype=torch.bool, device=p_cols.device)
+    rows = torch.nonzero(p_ok).squeeze(1)
+    builds = b_cols[b_ok]
+    if rows.numel() == 0 or builds.shape[0] == 0:
+        return hits
+    probes = p_cols[rows]
+    seg = min(builds.shape[0], _PLAIN_SEG)
+    step = max(1, _PLAIN_PAIRS // seg)
+    for a0 in range(0, probes.shape[0], step):
+        pa = probes[a0 : a0 + step]
+        found = torch.zeros((pa.shape[0],), dtype=torch.bool, device=p_cols.device)
+        for b0 in range(0, builds.shape[0], seg):
+            bb = builds[b0 : b0 + seg]
+            eq = pa[:, None, 0] == bb[None, :, 0]
+            for c in range(1, n_cols):
+                eq &= pa[:, None, c] == bb[None, :, c]
+            found |= eq.any(dim=1)
+        hits[rows[a0 : a0 + step]] = found
+    return hits
+
+
+def allpairs_cuda(p_cols, p_ok, b_cols, b_ok) -> torch.Tensor:
+    """Launch the CUDA all-pairs kernel (both sides non-empty).  Returns
+    ``(NP,) bool`` hits, as :func:`allpairs_plain`."""
+    NP, n_cols = p_cols.shape
+    NB = b_cols.shape[0]
+    dev = p_cols.device
+    _check_inputs("blocked probe", ((p_cols, torch.int32), (p_ok, torch.bool),
+                                    (b_cols, torch.int32), (b_ok, torch.bool)), dev)
+    if b_cols.shape[1] != n_cols or NP == 0 or NB == 0:
+        raise ValueError("blocked probe kernel needs non-empty sides of equal key width")
+    hits = torch.empty((NP,), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        rc = _launchers()[1](
+            p_cols.data_ptr(), p_ok.data_ptr(), b_cols.data_ptr(), b_ok.data_ptr(),
+            NP, NB, n_cols, hits.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"probe_blocked kernel launch failed: CUDA error {rc}")
+    probe.launches += 1
+    return hits.view(torch.bool)
+
+
+def _blocked(allpairs, build_sig, build_keys, build_ok, probe_sig, probe_keys,
+             probe_ok) -> torch.Tensor:
+    n_p, n_b = probe_sig.shape[0], build_sig.shape[0]
+    if n_p == 0 or n_b == 0:  # a grid of 0 blocks is not a valid launch
+        return torch.zeros((n_p,), dtype=torch.bool, device=probe_sig.device)
+
+    def cols(sig, keys):
+        return torch.cat([sig.to(torch.int32)[:, None], keys.to(torch.int32)], 1).contiguous()
+
+    hits = allpairs(cols(probe_sig, probe_keys), probe_ok.contiguous(),
+                    cols(build_sig, build_keys), build_ok.contiguous())
+    return hits & probe_ok
+
+
+def probe(
+    build_sig: torch.Tensor,
+    build_keys: torch.Tensor,
+    build_ok: torch.Tensor,
+    probe_sig: torch.Tensor,
+    probe_keys: torch.Tensor,
+    probe_ok: torch.Tensor,
+    *,
+    build_fp: torch.Tensor | None = None,
+    probe_fp: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Existence probe: hits[i] = any valid build row with equal (sig, key).
+
+    Unbucketed O(NP·NB) sweep; fingerprints are accepted (``probe_fn``
+    interface) but unused.  On a CUDA tensor it launches the kernel (or
+    raises); on a CPU tensor it runs :func:`allpairs_plain`.
+    """
+    del build_fp, probe_fp
+    allpairs = allpairs_cuda if probe_sig.is_cuda else allpairs_plain
+    return _blocked(allpairs, build_sig, build_keys, build_ok, probe_sig, probe_keys,
+                    probe_ok)
+
+
+probe.launches = 0
+
+
+def probe_blocked_plain(
+    build_sig, build_keys, build_ok, probe_sig, probe_keys, probe_ok,
+    *, build_fp=None, probe_fp=None,
+) -> torch.Tensor:
+    """:func:`probe` with the plain all-pairs compare on any device."""
+    del build_fp, probe_fp
+    return _blocked(allpairs_plain, build_sig, build_keys, build_ok, probe_sig,
+                    probe_keys, probe_ok)

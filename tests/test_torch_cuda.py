@@ -1,6 +1,7 @@
-"""Card tests of the port: the hand-written CUDA probe kernel against its
-plain torch version, and one MSJ run on the card against the same run on
-the CPU.  They need a CUDA device and skip without one; on a machine with
+"""Card tests of the port: each hand-written CUDA kernel (the bucketed and
+the all-pairs probe, bloom build and bloom probe) against its plain torch
+version and its oracle, and MSJ runs on the card (default, with the bloom
+prefilter, with the all-pairs probe) against the same runs on the CPU.  They need a CUDA device and skip without one; on a machine with
 a card run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -16,6 +17,8 @@ from repro_torch.core.algebra import semijoins_of  # noqa: E402
 from repro_torch.core.msj import run_msj  # noqa: E402
 from repro_torch.core.relation import db_from_dict  # noqa: E402
 from repro_torch.engine.comm import SimComm  # noqa: E402
+from repro_torch.kernels.bloom import ops as bloom  # noqa: E402
+from repro_torch.kernels.bloom import ref as bloom_ref  # noqa: E402
 from repro_torch.kernels.msj_probe import ops, ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -24,7 +27,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the probe kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -69,17 +72,87 @@ def test_kernel_exact_under_forced_collisions(cuda, collide):
     assert torch.equal(got, ref.probe(*args))
 
 
-def test_msj_on_card_equals_cpu(cuda):
+def _counts():
+    return (ops.probe_bucketed.launches, ops.probe.launches, bloom.build.launches,
+            bloom.probe.launches)
+
+
+@pytest.mark.parametrize("probe_fn,bloom_bits,launched", [
+    (ops.probe_bucketed, 0, (4, 0, 0, 0)),      # one probe per shard
+    (ops.probe_bucketed, 2**14, (4, 0, 4, 16)),  # + one build per shard, one probe per semi-join
+    (ops.probe, 0, (0, 4, 0, 0)),
+])
+def test_msj_on_card_equals_cpu(cuda, probe_fn, bloom_bits, launched):
     qs = queries.make_queries("A3")
     db_np = queries.gen_db(qs, n_guard=4096, n_cond=4096, seed=2)
     sjs = [sj for q in qs for sj in semijoins_of(q)]
     out_c, st_c = run_msj(db_from_dict(db_np, P=4, device="cpu"), sjs, SimComm(4),
-                          probe_fn=ops.probe_bucketed)
-    before = ops.probe_bucketed.launches
+                          probe_fn=probe_fn, bloom_bits=bloom_bits)
+    before = _counts()
     out_g, st_g = run_msj(db_from_dict(db_np, P=4), sjs, SimComm(4),
-                          probe_fn=ops.probe_bucketed)
-    assert ops.probe_bucketed.launches == before + 4
+                          probe_fn=probe_fn, bloom_bits=bloom_bits)
+    assert tuple(a - b for a, b in zip(_counts(), before)) == launched
     for k in out_c:
         assert torch.equal(out_c[k].data, out_g[k].data.cpu())
         assert torch.equal(out_c[k].valid, out_g[k].valid.cpu())
     assert {k: int(v) for k, v in st_c.items()} == {k: int(v) for k, v in st_g.items()}
+
+
+@pytest.mark.parametrize("nb,np_,kw,key_range", [
+    (0, 40, 1, 5), (40, 0, 1, 5), (1, 1, 1, 1), (64, 100, 1, 0),
+    (1000, 1000, 2, 3), (3000, 2000, 3, 10_000), (1280, 2560, 2, 2**30),
+    (500, 300, 126, 0), (129, 385, 4, 2),
+])
+def test_blocked_kernel_matches_plain_and_oracle(cuda, nb, np_, kw, key_range):
+    args = _case(nb + np_ + 1, nb, np_, kw, key_range, cuda)
+    before = ops.probe.launches
+    got = ops.probe(*args)
+    want = ops.probe_blocked_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, ref.probe(*args))
+    assert ops.probe.launches == before + (1 if nb and np_ else 0)
+
+
+@pytest.mark.parametrize("bits", [128, 1000, 2**16, 2**24])
+@pytest.mark.parametrize("n", [0, 1, 1000, 70_001])
+def test_bloom_kernels_match_plain(cuda, bits, n):
+    rng = np.random.default_rng(bits + n)
+    keys = torch.from_numpy(rng.integers(-(2**31), 2**31, (n, 1), dtype=np.int64)
+                            .astype(np.int32)).to(cuda)
+    sigs = torch.from_numpy(rng.integers(0, 4, n).astype(np.int32)).to(cuda)
+    mask = torch.from_numpy(rng.random(n) < 0.6).to(cuda)
+    nw = bloom.n_words(bits)
+    for fp in (None, keys[:, 0]):
+        pos = bloom.positions(keys, sigs, bits, fp=fp)
+        before = (bloom.build.launches, bloom.probe.launches)
+        filt = bloom.build_cuda(pos, mask, nw)
+        found = bloom.probe_cuda(pos, filt)
+        torch.cuda.synchronize()
+        assert torch.equal(filt, bloom.build_plain(pos, mask, nw))
+        assert torch.equal(found, bloom.probe_plain(pos, filt))
+        assert bool(found[mask].all())
+        assert (bloom.build.launches, bloom.probe.launches) == tuple(
+            b + (1 if n else 0) for b in before)
+    if n <= 1000:
+        want = bloom_ref.build(keys, sigs, mask, bits)
+        assert np.array_equal(bloom.build(keys, sigs, mask, bits).cpu().numpy(), want)
+        assert np.array_equal(bloom.probe(filt, keys, sigs, bits).cpu().numpy(),
+                              bloom_ref.probe(filt, keys, sigs, bits))
+
+
+@pytest.mark.parametrize("case", ["inactive", "one_bit", "last_bit"])
+def test_bloom_kernels_edge_positions(cuda, case):
+    n, bits = 5000, 2**12
+    nw = bloom.n_words(bits)
+    pos = torch.randint(0, bits, (n, 2), dtype=torch.int32, device=cuda)
+    mask = torch.ones(n, dtype=torch.bool, device=cuda)
+    if case == "inactive":
+        mask[:] = False
+    elif case == "one_bit":
+        pos[:] = 77
+    else:
+        pos[::3] = bits - 1
+    filt = bloom.build_cuda(pos, mask, nw)
+    assert torch.equal(filt, bloom.build_plain(pos, mask, nw))
+    assert torch.equal(bloom.probe_cuda(pos, filt), bloom.probe_plain(pos, filt))

@@ -14,8 +14,8 @@ is an int32 or a bool.
 The reference's CPU cost is compile time per operation shape, so the
 reference plans share one data shape (A3 at N rows, P shards) where they
 can: the PAR plan runs with static (worst-case) forward caps, so its four
-same-shaped MSJ jobs and the ``overlap=True`` and ``skew_defense=True``
-runs of it reuse one set of compiled operations (run in a fresh process,
+same-shaped MSJ jobs and the ``overlap=True``, ``skew_defense=True`` and
+``bloom_bits`` runs of it reuse one set of compiled operations (run in a fresh process,
 the skew run alone costs twice as long); 1-ROUND and GREEDY run the
 count-sized caps.  One SGF family (C1, ``plan_sgf``) is compared with
 the reference as well; all four C families are held against the
@@ -156,6 +156,16 @@ def test_skew_defense_matches_reference():
     assert sum(r.stats.get("replicated", 0) for r in rep.records) > 0
 
 
+@pytest.mark.parametrize("overlap", [False, True])
+def test_bloom_matches_reference(overlap):
+    """``ExecutorConfig(bloom_bits=...)`` through both executors, inline and
+    split into transfer and compute sub-nodes: held against ``repro`` (every
+    output array and job counter) and the set-semantics oracle."""
+    rep = _a3_par_both(bloom_bits=256, overlap=overlap)
+    split = {"TransferJob", "ComputeJob"} <= {type(r.job).__name__ for r in rep.records}
+    assert split == overlap
+
+
 def test_sgf_plan_matches_reference():
     """One SGF family through ``plan_sgf`` in both packages: C1, four
     queries over four guards sharing their conditionals, as one 1-ROUND
@@ -273,5 +283,3 @@ def test_unported_layers_raise():
     plan = planner.plan_par(queries.make_queries("A3"))
     with pytest.raises(NotImplementedError, match="sanitizer"):
         execute_plan(tdb, plan, SimComm(P), ExecutorConfig(sanitize=True))
-    with pytest.raises(NotImplementedError, match="bloom"):
-        execute_plan(tdb, plan, SimComm(P), ExecutorConfig(bloom_bits=128))

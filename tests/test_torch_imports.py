@@ -21,7 +21,8 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
-    assert "repro_torch.kernels.msj_probe.ops" in mods and "repro_torch.core.executor" in mods
+    assert {"repro_torch.kernels.msj_probe.ops", "repro_torch.kernels.bloom.ops",
+            "repro_torch.core.executor"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -29,7 +30,9 @@ def test_every_module_imports_without_jax_or_repro():
         " or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "import repro_torch.kernels.msj_probe.ops as ops\n"
-        "assert ops.probe_bucketed.launches == 0\n"
+        "import repro_torch.kernels.bloom.ops as bloom\n"
+        "assert ops.probe_bucketed.launches == ops.probe.launches == 0\n"
+        "assert bloom.build.launches == bloom.probe.launches == 0\n"
         "print('ok')\n"
     )
     out = subprocess.run(
@@ -44,5 +47,5 @@ def test_sources_ship_with_the_package():
     from repro_torch.kernels import build
 
     srcs = build.sources()
-    assert [s.name for s in srcs] == ["probe_bucketed.cu"]
+    assert [s.name for s in srcs] == ["bloom.cu", "probe_bucketed.cu"]
     assert all(build.lib_path(s).parent == build.BUILD_DIR for s in srcs)

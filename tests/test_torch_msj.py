@@ -5,7 +5,8 @@ takes its plain band compare on CPU tensors) against ``repro``'s
 ``run_msj`` on the same sharded state (``db_from_reference``): the A1–A5
 and B2 families and a two-column-key query (hashed fingerprints), packing
 × fingerprint on and off, an undersized
-``forward_cap`` (exact overflow), a forced skew route, the
+``forward_cap`` (exact overflow), a forced skew route, the bloom
+prefilter, the unbucketed all-pairs probe as ``probe_fn``, the
 transfer + compute split, the count phase, the salt-table sketch and
 ``run_eval``.  Outputs (``data``, ``valid``) and every stat must be equal;
 exact equality, since every value is an int32 or a bool.
@@ -175,10 +176,62 @@ def test_transfer_compute_split_equals_inline():
         assert int(cs[k]) == int(inline_stats[k])
 
 
-def test_bloom_prefilter_not_ported_yet():
+@pytest.mark.parametrize("bloom_bits", [256, 4096])
+@pytest.mark.parametrize("packing,fingerprint", [
+    (True, True), (False, True), (True, False), (False, False),
+])
+def test_run_msj_bloom_matches_reference(bloom_bits, packing, fingerprint):
+    """The bloom prefilter drops Req rows before the packing dedup: the
+    elected leaders, and so every array and counter, match the
+    reference's."""
+    sjs, dbs = _family("A3")
+    _both(sjs, dbs, bloom_bits=bloom_bits, packing=packing, fingerprint=fingerprint)
+
+
+def test_bloom_transfer_compute_split_equals_inline():
     sjs, (_, tdb) = _family("A3")
-    with pytest.raises(NotImplementedError, match="bloom"):
-        msj.run_msj(tdb, sjs, SimComm(P), bloom_bits=256)
+    inline_out, inline_stats = msj.run_msj(tdb, sjs, SimComm(P), bloom_bits=256,
+                                           probe_fn=ops.probe_bucketed)
+    buf, xs = msj.run_msj_transfer("%xfer0", tdb, sjs, SimComm(P), bloom_bits=256)
+    assert buf.bloom_bits == 256
+    out, cs = msj.run_msj_compute(tdb, buf, SimComm(P), probe_fn=ops.probe_bucketed)
+    assert set(out) == set(inline_out)
+    for k, rel in out.items():
+        assert torch.equal(rel.data, inline_out[k].data)
+        assert torch.equal(rel.valid, inline_out[k].valid)
+    for k in ("sent_fwd", "bytes_fwd", "overflow", "forward_cap"):
+        assert int(xs[k]) == int(inline_stats[k])
+    for k in ("hits", "recv_fwd", "bytes_bwd"):
+        assert int(cs[k]) == int(inline_stats[k])
+
+
+@pytest.mark.parametrize("qid", ["A3", "wide"])
+def test_bloom_prefilter_equivalent(qid):
+    """The port's counterpart of the reference's bloom equivalence test:
+    the same outputs with and without the prefilter, no more forward
+    bytes, and the same count-sized forward capacity (the count phase
+    ignores the filter)."""
+    sjs, (_, tdb) = _family(qid)
+    out0, s0 = msj.run_msj(tdb, sjs, SimComm(P), probe_fn=ops.probe_bucketed)
+    out1, s1 = msj.run_msj(tdb, sjs, SimComm(P), bloom_bits=4096,
+                           probe_fn=ops.probe_bucketed)
+    for k in out0:
+        assert torch.equal(out0[k].data, out1[k].data)
+        assert torch.equal(out0[k].valid, out1[k].valid)
+    assert int(s1["bytes_fwd"]) <= int(s0["bytes_fwd"])
+    assert int(s1["forward_cap"]) == int(s0["forward_cap"])
+    assert int(s1["hits"]) == int(s0["hits"])
+
+
+@pytest.mark.parametrize("qid", ["A3", "wide"])
+def test_run_msj_blocked_probe_matches_reference(qid):
+    """The unbucketed all-pairs probe as a drop-in ``probe_fn``: equal to
+    the reference's default run (its sort-merge probe)."""
+    sjs, (jdb, tdb) = _family(qid)
+    want = jax.jit(lambda d: jmsj.run_msj(d, sjs, JSimComm(P), forward_cap=CAP))(jdb)
+    got = msj.run_msj(tdb, sjs, SimComm(P), probe_fn=ops.probe, forward_cap=CAP)
+    assert_rels_equal(want[0], got[0])
+    assert_stats_equal(want[1], got[1])
 
 
 def test_run_eval_matches_reference():

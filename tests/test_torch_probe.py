@@ -1,4 +1,4 @@
-"""Port differential: the bucketed MSJ probe.
+"""Port differential: the MSJ probes.
 
 ``repro_torch``'s ``probe_bucketed`` (on CPU tensors: the plain band
 compare the CUDA kernel is held against on the card) and
@@ -6,7 +6,9 @@ compare the CUDA kernel is held against on the card) and
 run in interpret mode, its pure oracle ``ref.probe`` and the port's own
 oracles, on the reference's fingerprint corpus: empty sides, duplicate
 keys, dense collisions, wide keys, huge magnitudes, forced fingerprint
-collisions and ragged tile edges.  Exact equality: hits are booleans."""
+collisions and ragged tile edges.  The unbucketed all-pairs ``probe`` and
+``probe_blocked_plain`` against the reference's Pallas ``probe`` (interpret
+mode) on a shape grid.  Exact equality: hits are booleans."""
 import numpy as np
 import pytest
 
@@ -128,3 +130,59 @@ def test_launch_counter_untouched_on_cpu():
     before = ops.probe_bucketed.launches
     _port(_case(np.random.default_rng(3), 50, 50, 1, 5))
     assert ops.probe_bucketed.launches == before
+
+
+def _check_blocked(case, fps=None, **tiles):
+    j = [jnp.asarray(a) for a in case]
+    want = np.asarray(jref.probe(*j))
+    kw = {} if fps is None else {"build_fp": jnp.asarray(fps[0]), "probe_fp": jnp.asarray(fps[1])}
+    np.testing.assert_array_equal(np.asarray(jops.probe(*j, interpret=True, **tiles, **kw)), want)
+    for fn in (ops.probe, ops.probe_blocked_plain):
+        np.testing.assert_array_equal(_port(case, fps, fn), want, err_msg=fn.__name__)
+
+
+@pytest.mark.parametrize("nb,np_,kw,key_range", [
+    (0, 40, 1, 5),       # empty build side
+    (40, 0, 1, 5),       # empty probe side
+    (1, 1, 1, 1),
+    (64, 100, 1, 0),     # all-duplicate keys
+    (100, 100, 2, 3),    # dense collisions
+    (300, 200, 3, 10_000),  # sparse, wide keys
+    (128, 256, 2, 2**30),   # huge magnitudes incl. negatives
+    (257, 129, 6, 2),    # ragged against the reference's 256-row tiles
+])
+def test_probe_blocked_matches_reference_grid(nb, np_, kw, key_range):
+    _check_blocked(_case(np.random.default_rng(nb + np_), nb, np_, kw, key_range))
+
+
+def test_probe_blocked_ignores_fingerprints_and_tiles():
+    """Fingerprints are accepted and unused (colliding ones change
+    nothing); the reference's tile sizes do not move its result."""
+    case = list(_case(np.random.default_rng(6), 150, 170, 2, 4))
+    case[1][:2, 0] = [-(2**31), 2**31 - 1]
+    case[4][:2, 0] = [-(2**31), 2**31 - 1]
+    zeros = (np.zeros(150, np.int32), np.zeros(170, np.int32))
+    _check_blocked(tuple(case), zeros, tp=16, tb=64)
+
+
+def test_probe_blocked_plain_chunks(monkeypatch):
+    """The plain version's chunking (probe rows and build rows cut into
+    ragged steps) does not change its result."""
+    case = _case(np.random.default_rng(8), 333, 211, 2, 6)
+    want = _port(case, fn=ref.probe)
+    monkeypatch.setattr(ops, "_PLAIN_SEG", 7)
+    monkeypatch.setattr(ops, "_PLAIN_PAIRS", 50)
+    np.testing.assert_array_equal(_port(case, fn=ops.probe_blocked_plain), want)
+
+
+def test_probe_blocked_cuda_tensor_never_takes_the_plain_path(monkeypatch):
+    seen = []
+    monkeypatch.setattr(ops, "allpairs_cuda", lambda *a: seen.append("cuda") or a[1])
+    monkeypatch.setattr(ops, "allpairs_plain", lambda *a: seen.append("plain") or a[1])
+    case = [torch.from_numpy(a) for a in _case(np.random.default_rng(2), 8, 8, 1, 3)]
+    before = ops.probe.launches
+    ops.probe(*case)
+    assert seen == ["plain"] and ops.probe.launches == before
+    monkeypatch.setattr(type(case[3]), "is_cuda", property(lambda self: True))
+    ops.probe(*case)
+    assert seen == ["plain", "cuda"]
