@@ -54,6 +54,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -501,13 +502,16 @@ def phase_bloom_kernels(build_in, probe_in) -> dict:
 
     pos_b, mask_b, nw = build_in
     nbits = nw * bloom_ops.LANES
+    # the yardsticks' int64 indices, made once outside the timed calls
+    active_idx = pos_b[mask_b].reshape(-1).long()
+    pos_idx = pos.long()
     build_t = {
         "n": int(pos_b.shape[0]), "active": int(mask_b.sum()), "bits": nbits,
         "max_abs_err": max_err,
         "ms": cuda_ms(lambda: bloom_ops.build_cuda(pos_b, mask_b, nw), REPS),
         "plain_ms": cuda_ms(lambda: bloom_ops.build_plain(pos_b, mask_b, nw), REPS // 5),
         "library_ms": cuda_ms(lambda: torch.zeros(nbits, dtype=torch.int32, device=DEVICE)
-                              .scatter_(0, pos_b[mask_b].reshape(-1).long(), 1), REPS),
+                              .scatter_(0, active_idx, 1), REPS),
         # positions and mask read once, the whole filter written once
         **bound(pos_b.numel() * 4 + mask_b.numel(), nbits * 4, 2 * int(mask_b.sum())),
     }
@@ -517,7 +521,7 @@ def phase_bloom_kernels(build_in, probe_in) -> dict:
         "bits_set": int((filt > 0).sum()), "found": int(found.sum()),
         "ms": cuda_ms(lambda: bloom_ops.probe_cuda(pos, filt), REPS),
         "plain_ms": cuda_ms(lambda: bloom_ops.probe_plain(pos, filt), REPS // 5),
-        "library_ms": cuda_ms(lambda: torch.take(flat, pos.long()).all(1), REPS),
+        "library_ms": cuda_ms(lambda: torch.take(flat, pos_idx).all(1), REPS),
         # positions read once, each distinct filter word it needs once, one
         # bool out per row; two compares per row
         **bound(pos.numel() * 4 + torch.unique(pos).numel() * 4, pos.shape[0],
@@ -551,6 +555,7 @@ def phase_blocked(db, sjs, P, rows):
         err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max()) if got.numel() else 0
         if not torch.equal(got, want) or err != 0:
             raise AssertionError(f"blocked kernel != plain on case {name}: max |diff| {err}")
+        max_err = max(max_err, err)
         if name != "main_path_shard0" and args[0].shape[0] * args[3].shape[0] <= 4e7:
             if not torch.equal(got, ref.probe(*args)):
                 raise AssertionError(f"blocked kernel != dense oracle on case {name}")
@@ -568,10 +573,11 @@ def phase_blocked(db, sjs, P, rows):
         "ms": cuda_ms(lambda: ops.probe(*args, **kwargs), REPS),
         "plain_ms": cuda_ms(lambda: ops.probe_blocked_plain(*args, **kwargs), 2),
         "library_ms": isin_ms(args),
-        # inputs read once, one bool out per probe row; every (valid probe,
-        # valid build) pair compared on each of the KW + 1 key words
-        **bound(unique_bytes(list(args)), probe_sig.shape[0],
-                n_valid_p * n_valid_b * (build_keys.shape[1] + 1)),
+        # the sweep's work, not part of the bound: the function is the same
+        # existence probe as probe_bucketed's, which needs far fewer compares
+        "all_pairs": n_valid_p * n_valid_b,
+        # inputs read once, one bool out per probe row
+        **bound(unique_bytes(list(args)), probe_sig.shape[0], 0),
     }
     emit({"phase": "blocked_timing", **timing})
     del main_case, args, kwargs, cases
@@ -676,11 +682,13 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    logs = build.build_all()
+    srcs = build.sources()
+    with ThreadPoolExecutor(max_workers=len(srcs)) as pool:  # one nvcc each, all at once
+        logs = dict(zip((s.name for s in srcs), pool.map(build.build, srcs)))
     ptxas = {name: [ln.strip() for ln in log.splitlines() if "ptxas info" in ln]
              for name, log in logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sources": [str(s.relative_to(ROOT)) for s in build.sources()], "ptxas": ptxas})
+          "sources": [str(s.relative_to(ROOT)) for s in srcs], "ptxas": ptxas})
 
     P, rows = SHARDS, 2**args.log2_rows
     qs = queries.make_queries("A3")

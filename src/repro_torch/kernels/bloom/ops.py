@@ -29,6 +29,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.engine import hashing
+from repro_torch.kernels import build as kbuild
 
 LANES = 128
 NPROBE = 2  # hash functions per key
@@ -98,8 +99,6 @@ def probe_plain(pos: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _launchers():
-    from repro_torch.kernels import build as kbuild
-
     lib = kbuild.load(SOURCE)
     fns = lib.bloom_build_launch, lib.bloom_probe_launch
     for fn in fns:
@@ -109,19 +108,11 @@ def _launchers():
     return fns
 
 
-def _check(name, t, dtype, shape, dev):
-    if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-        raise ValueError(
-            f"bloom kernel input {name} must be a contiguous {dtype} tensor of shape "
-            f"{shape} on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
-        )
-
-
 def build_cuda(pos: torch.Tensor, mask: torch.Tensor, nw: int) -> torch.Tensor:
     """Launch the CUDA build kernel: the same filter as :func:`build_plain`."""
     n, dev = pos.shape[0], pos.device
-    _check("pos", pos, torch.int32, (n, NPROBE), dev)
-    _check("mask", mask, torch.bool, (n,), dev)
+    kbuild.check_inputs("bloom build", ((pos, torch.int32, (n, NPROBE)),
+                                        (mask, torch.bool, (n,))), dev)
     flat = torch.zeros((nw * LANES,), dtype=torch.int32, device=dev)
     if n == 0:  # a grid of 0 blocks is not a valid launch
         return flat.view(nw, LANES)
@@ -137,8 +128,8 @@ def build_cuda(pos: torch.Tensor, mask: torch.Tensor, nw: int) -> torch.Tensor:
 def probe_cuda(pos: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA probe kernel: the same flags as :func:`probe_plain`."""
     n, dev = pos.shape[0], pos.device
-    _check("pos", pos, torch.int32, (n, NPROBE), dev)
-    _check("filt", filt, torch.int32, tuple(filt.shape), dev)
+    kbuild.check_inputs("bloom probe", ((pos, torch.int32, (n, NPROBE)),
+                                        (filt, torch.int32)), dev)
     if pos.data_ptr() % 8:
         raise ValueError("bloom probe kernel reads each row's positions as one 8-byte load")
     found = torch.empty((n,), dtype=torch.bool, device=dev)

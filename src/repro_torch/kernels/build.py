@@ -15,7 +15,6 @@ import os
 import shutil
 import subprocess
 import tempfile
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
@@ -71,14 +70,18 @@ def build(src: Path) -> str:
     return log
 
 
-def build_all() -> dict[str, str]:
-    """Compile every source at once, one ``nvcc`` per source, all started
-    together.  Returns each source's nvcc output by file name; raises the
-    first failure."""
-    srcs = sources()
-    with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
-        logs = list(pool.map(build, srcs))
-    return {src.name: log for src, log in zip(srcs, logs)}
+def check_inputs(kind: str, tensors, dev) -> None:
+    """Raise unless each ``(tensor, dtype)`` or ``(tensor, dtype, shape)`` is
+    a contiguous tensor of that dtype (and shape) on ``dev``: what a kernel
+    launched through ``ctypes`` assumes of its pointers."""
+    for t, dtype, *shape in tensors:
+        if (t.device != dev or t.dtype != dtype or not t.is_contiguous()
+                or (shape and tuple(t.shape) != tuple(shape[0]))):
+            want = f" of shape {tuple(shape[0])}" if shape else ""
+            raise ValueError(
+                f"{kind} kernel input must be a contiguous {dtype} tensor{want} on {dev}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
 
 
 @functools.lru_cache(maxsize=None)

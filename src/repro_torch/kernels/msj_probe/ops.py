@@ -41,6 +41,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.engine import hashing
+from repro_torch.kernels import build as kbuild
 
 #: probe rows per kernel block (and per band of the plain version)
 TILE = 128
@@ -151,9 +152,7 @@ def band_probe_plain(p_cols, p_pk, p_ok, b_cols, b_pk, b_ok) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _launchers():
-    from repro_torch.kernels import build
-
-    lib = build.load(SOURCE)
+    lib = kbuild.load(SOURCE)
     bucketed, blocked = lib.probe_bucketed_launch, lib.probe_blocked_launch
     tail = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     bucketed.argtypes = [ctypes.c_void_p] * 6 + tail
@@ -162,24 +161,15 @@ def _launchers():
     return bucketed, blocked
 
 
-def _check_inputs(kind, tensors, dev):
-    for t, dt in tensors:
-        if t.device != dev or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(
-                f"{kind} kernel input must be a contiguous {dt} tensor on {dev}, "
-                f"got {t.dtype} on {t.device}"
-            )
-
-
 def band_probe_cuda(p_cols, p_pk, p_ok, b_cols, b_pk, b_ok) -> torch.Tensor:
     """Launch the CUDA band-compare kernel on sorted sides (both non-empty).
     Returns ``(NP,) bool`` hits in the probe side's sorted order."""
     NP, n_cols = p_cols.shape
     NB = b_cols.shape[0]
     dev = p_cols.device
-    _check_inputs("probe", ((p_cols, torch.int32), (p_pk, torch.int32), (p_ok, torch.bool),
-                            (b_cols, torch.int32), (b_pk, torch.int32), (b_ok, torch.bool)),
-                  dev)
+    kbuild.check_inputs("probe", ((p_cols, torch.int32), (p_pk, torch.int32),
+                                  (p_ok, torch.bool), (b_cols, torch.int32),
+                                  (b_pk, torch.int32), (b_ok, torch.bool)), dev)
     if b_cols.shape[1] != n_cols or NP == 0 or NB == 0:
         raise ValueError("probe kernel needs non-empty sides of equal key width")
     hits = torch.empty((NP,), dtype=torch.uint8, device=dev)
@@ -269,8 +259,8 @@ def allpairs_cuda(p_cols, p_ok, b_cols, b_ok) -> torch.Tensor:
     NP, n_cols = p_cols.shape
     NB = b_cols.shape[0]
     dev = p_cols.device
-    _check_inputs("blocked probe", ((p_cols, torch.int32), (p_ok, torch.bool),
-                                    (b_cols, torch.int32), (b_ok, torch.bool)), dev)
+    kbuild.check_inputs("blocked probe", ((p_cols, torch.int32), (p_ok, torch.bool),
+                                          (b_cols, torch.int32), (b_ok, torch.bool)), dev)
     if b_cols.shape[1] != n_cols or NP == 0 or NB == 0:
         raise ValueError("blocked probe kernel needs non-empty sides of equal key width")
     hits = torch.empty((NP,), dtype=torch.uint8, device=dev)
