@@ -9,12 +9,16 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 2. ``build``   — every CUDA source compiled with ``nvcc`` for ``sm_90a``
    from the sources in this checkout, one ``nvcc`` per source, all started
    together (registers / shared memory from ptxas).
-3. ``kernel``  — the bucketed probe kernel against its plain torch
-   version on the card, exactly, on a case list (key widths 1/2/4/126,
-   empty sides, all-duplicate keys, all-equal prune keys, forced
-   ``fp = key % 4`` collisions, int32 extremes, ragged tiles) and on one
-   shard's probe inputs captured from the full-size MSJ run; then times
-   kernel, plain version and ``torch.isin`` at that shape.
+3. ``kernel``  — the bucketed probe (the hash join of
+   ``csrc/probe_hash.cu``: table build and table probe, slots hashed by the
+   exact row) against its plain torch band version on the card, exactly, on a case list (key widths
+   1/2/4/126, empty sides, all-duplicate keys, forced ``fp = 0`` and
+   ``fp = key % 4`` collisions, int32 extremes, ragged sizes, a table at
+   its load limit of 0.5 and one just past a doubling) and on one shard's
+   probe inputs captured from the full-size MSJ run (copied with their
+   aliasing, so their distinct bytes give the bound); then times the
+   wrapper, its table fill, table build and table probe alone, the plain
+   version and ``torch.isin`` at that shape.
 4. ``e2e``     — the A3 family (guard R arity 4, four unary conditionals
    sharing key x) through the planner and ``execute_plan`` on 16 shards:
    the 1-ROUND plan at 2**log2-rows rows per relation and the GREEDY plan
@@ -22,7 +26,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    (every MSJ job must resolve to the kernel) and ``"sorted"``; outputs
    and counters must be bit-identical.  Every kernel's launch counter is
    set to 0 just before the measured ``auto`` run of a path and read just
-   after; each kernel of the path must have launched.  One more ``auto``
+   after; each kernel of the path must have launched, and the probe
+   wrapper's count must be its table-build plus table-probe launches.  One more ``auto``
    run with a synchronizing tracer splits the wall into the operators'
    phases (count, bloom, shuffle, probe, scatter, EVAL).
 5. ``bloom``   — the bloom build and probe kernels against their plain
@@ -34,11 +39,14 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    phase's database with ``bloom_bits`` = one bit per guard row, held
    bit-identical between ``auto`` and ``sorted`` and equal in outputs and
    forward capacity (and no larger in forward bytes) to ``bloom_bits=0``.
-6. ``blocked`` — the unbucketed all-pairs probe kernel against its plain
-   version and the dense oracle on a case list, timed at shard 0's inputs
-   of an MSJ run at 2**20 rows per relation; then that run with
-   ``probe_fn`` = the all-pairs probe, held bit-identical to the default
-   kernel backend.  (Cut to 2**20: the probe is O(rows**2) per shard.)
+6. ``blocked`` — the all-pairs probe (the same hash join) against its
+   plain all-pairs version and the dense oracle on the same case list,
+   timed at shard 0's inputs of an MSJ run at 2**20 rows per relation;
+   then that run with ``probe_fn`` = the all-pairs probe and with the
+   bucketed probe, each held bit-identical to the same run with the
+   torch sort-merge probe (``msj.probe_sorted``), which shares no code
+   with the hash join.
+   (Cut to 2**20: its plain version is O(rows**2) per shard.)
 7. ``oracle``  — the quickstart query on the card under PAR / GREEDY /
    1-ROUND, and 1-ROUND with the bloom prefilter, set-equal to the
    set-semantics oracle ``ref_engine``.
@@ -102,7 +110,17 @@ def counters() -> dict:
     from repro_torch.kernels.msj_probe import ops
 
     return {"probe_bucketed": ops.probe_bucketed, "probe_blocked": ops.probe,
+            "table_build": ops.table_build_cuda, "table_probe": ops.table_probe_cuda,
             "bloom_build": bloom_ops.build, "bloom_probe": bloom_ops.probe}
+
+
+def check_probe_launches(name, launches, wrapper) -> None:
+    """The probe wrapper's count is the launches of its two kernels, one
+    table build and one table probe per hash join."""
+    build, probe_ = launches["table_build"], launches["table_probe"]
+    if launches[wrapper] != build + probe_ or build != probe_:
+        raise AssertionError(f"{name}: {wrapper} counted {launches[wrapper]} launches, "
+                             f"its kernels {build} table builds and {probe_} table probes")
 
 
 def reset_counts() -> None:
@@ -154,6 +172,19 @@ def probe_case(gen, nb, np_, kw, lo, hi, fp_mode=None, values=None):
     return args, kwargs
 
 
+def distinct_case(gen, nb, np_):
+    """Every build row valid and distinct (KW = 1), so the hash table holds
+    nb rows; about a quarter of the probe rows hit."""
+    import torch
+
+    keys = (torch.randperm(4 * nb, generator=gen, device=DEVICE)[:nb] - 2 * nb).to(torch.int32)
+    pk = torch.randint(-2 * nb, 2 * nb, (np_, 1), generator=gen, device=DEVICE).to(torch.int32)
+    return ((torch.zeros(nb, dtype=torch.int32, device=DEVICE), keys[:, None],
+             torch.ones(nb, dtype=torch.bool, device=DEVICE),
+             torch.zeros(np_, dtype=torch.int32, device=DEVICE), pk,
+             torch.rand(np_, generator=gen, device=DEVICE) < 0.9), {})
+
+
 def kernel_cases(gen):
     extremes = (-(2**31), -(2**31) + 1, -2, -1, 0, 1, 2**31 - 2, 2**31 - 1)
     return {
@@ -164,17 +195,48 @@ def kernel_cases(gen):
         "empty_build": probe_case(gen, 0, 300, 1, 0, 5),
         "empty_probe": probe_case(gen, 300, 0, 1, 0, 5),
         "all_duplicate": probe_case(gen, 4000, 4000, 1, 7, 8),
-        "all_equal_prune_key": probe_case(gen, 4000, 3000, 2, -50, 50, "zero"),
+        "fp_zero": probe_case(gen, 4000, 3000, 2, -50, 50, "zero"),
         "fp_key_mod4": probe_case(gen, 4000, 3000, 2, -50, 50, "mod4"),
         "int32_extremes": probe_case(gen, 3000, 3000, 2, 0, 0, values=extremes),
         "ragged_1x1": probe_case(gen, 1, 1, 1, 0, 2),
         "ragged_127x129": probe_case(gen, 129, 127, 1, 0, 40),
         "ragged_385x1000": probe_case(gen, 1000, 385, 2, 0, 20),
+        # 2**16 rows fill 2**17 slots to the load limit; one more doubles them
+        "table_load_half": distinct_case(gen, 2**16, 50_000),
+        "table_slots_doubled": distinct_case(gen, 2**16 + 1, 50_000),
     }
 
 
+def _view_key(t):
+    """What identifies the elements a view reads: where it starts, its dtype
+    and its sizes and strides, size-1 dims aside."""
+    return (t.data_ptr(), t.dtype,
+            tuple((n, st) for n, st in zip(t.shape, t.stride()) if n != 1))
+
+
+def distinct_bytes(tensors) -> int:
+    """Bytes a function must read of ``tensors``: each distinct view once."""
+    return sum({_view_key(t): t.numel() * t.element_size() for t in tensors}.values())
+
+
+def copy_inputs(tensors) -> list:
+    """Contiguous copies that keep the call's aliasing: views of the same
+    elements share one copy, so a kernel reads them as it did on the main
+    path.  (Copies, because views would keep the whole exchange alive.)"""
+    import torch
+
+    distinct = {}
+    for t in tensors:
+        if _view_key(t) not in distinct:
+            distinct[_view_key(t)] = t.clone(memory_format=torch.contiguous_format)
+    return [distinct[_view_key(t)].view(t.shape) for t in tensors]
+
+
 def capture_main_path_probe(db, sjs, P, probe_fn=None):
-    """One shard's probe_fn inputs from a full-size MSJ run (shard 0)."""
+    """One shard's probe_fn inputs from a full-size MSJ run (shard 0):
+    ``((args, kwargs), in_bytes)``, where ``in_bytes`` is what the card's
+    hash join must read of them (``args``, distinct views once; it does
+    not read the fingerprints)."""
     from repro_torch.core.msj import run_msj
     from repro_torch.engine.comm import SimComm
     from repro_torch.kernels.msj_probe import ops
@@ -183,41 +245,51 @@ def capture_main_path_probe(db, sjs, P, probe_fn=None):
     seen = []
 
     def capture(*args, **kwargs):
-        if not seen:  # copies: views would keep the whole exchange alive
-            seen.append((tuple(a.clone() for a in args),
-                         {k: v.clone() for k, v in kwargs.items()}))
+        if not seen:
+            copies = copy_inputs([*args, *kwargs.values()])
+            seen.append(((tuple(copies[:len(args)]), dict(zip(kwargs, copies[len(args):]))),
+                         distinct_bytes(args)))
         return probe_fn(*args, **kwargs)
 
     run_msj(db, sjs, SimComm(P), probe_fn=capture)
     return seen[0]
 
 
-def band_pairs(args, kwargs) -> int:
-    """(probe row, build row) pairs the bucketed probe compares on these
-    inputs: each valid probe row against its tile's prune-key band."""
+def table_split(args, reps: int = REPS) -> dict:
+    """The hash join's three steps timed alone with CUDA events around each
+    (mean of ``reps`` after one warm-up): the table fill, the table-build
+    kernel and the table-probe kernel; and the table's size, its load
+    (valid build rows / slots) and the slots the distinct rows took."""
     import torch
 
     from repro_torch.kernels.msj_probe import ops
 
-    sides, _ = ops._sides(*args, kwargs.get("build_fp"), kwargs.get("probe_fp"))
-    p_pk, p_ok, b_pk = sides[1], sides[2], sides[4]
-    if p_pk.shape[0] == 0 or b_pk.shape[0] == 0:
-        return 0
-    starts, b0, b1 = ops.tile_bands(p_pk, b_pk)
-    active = (p_ok & (p_pk >= 0)).to(torch.int64)
-    per_tile = torch.zeros(starts.shape[0], dtype=torch.int64, device=p_pk.device)
-    per_tile.index_add_(0, torch.arange(p_pk.shape[0], device=p_pk.device) // ops.TILE, active)
-    return int((per_tile * (b1 - b0)).sum())
+    build, probe_side = tuple(args[:3]), tuple(args[3:])
+    ops.check_join(build, probe_side)
+    build_ok = build[2]
+    slots = ops.table_slots(build_ok.shape[0])
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+              for _ in range(reps + 1)]
+    for ev in events:
+        ev[0].record()
+        table = torch.full((slots,), -1, dtype=torch.int32, device=DEVICE)
+        ev[1].record()
+        ops.table_build_cuda(table, *build)
+        ev[2].record()
+        ops.table_probe_cuda(table, build, probe_side)
+        ev[3].record()
+    torch.cuda.synchronize()
+
+    def mean(k):
+        return sum(ev[k].elapsed_time(ev[k + 1]) for ev in events[1:]) / reps
+
+    return {"fill_ms": mean(0), "table_build_ms": mean(1), "table_probe_ms": mean(2),
+            "table_slots": slots, "table_bytes": slots * 4,
+            "table_load": int(build_ok.sum()) / slots,
+            "table_rows": int((table >= 0).sum())}
 
 
-def unique_bytes(tensors) -> int:
-    seen = {}
-    for t in tensors:
-        seen[t.data_ptr()] = t.numel() * t.element_size()
-    return sum(seen.values())
-
-
-def phase_kernel(main_case) -> dict:
+def phase_kernel(main_case, in_bytes) -> dict:
     import torch
 
     from repro_torch.kernels.msj_probe import ops, ref
@@ -245,19 +317,14 @@ def phase_kernel(main_case) -> dict:
     args, kwargs = main_case
     ms = cuda_ms(lambda: ops.probe_bucketed(*args, **kwargs), REPS)
     plain_ms = cuda_ms(lambda: ops.probe_bucketed_plain(*args, **kwargs), REPS // 5)
-    sides, _ = ops._sides(*args, kwargs.get("build_fp"), kwargs.get("probe_fp"))
-    band_ms = cuda_ms(lambda: ops.band_probe_cuda(*sides), REPS)
     build_sig, build_keys, build_ok, probe_sig, probe_keys, probe_ok = args
-    lib_ms = isin_ms(args)
-    pairs = band_pairs(args, kwargs)
     timing = {
         "np": int(probe_sig.shape[0]), "nb": int(build_sig.shape[0]), "kw": int(build_keys.shape[1]),
         "valid_probe": int(probe_ok.sum()), "valid_build": int(build_ok.sum()),
-        "max_abs_err": max_err, "ms": ms, "band_kernel_only_ms": band_ms,
-        "plain_ms": plain_ms, "library_ms": lib_ms, "band_pairs": pairs,
-        # inputs read once, one bool out per probe row; compares per band pair
-        **bound(unique_bytes(list(args) + list(kwargs.values())), probe_sig.shape[0],
-                pairs * (build_keys.shape[1] + 1)),
+        "max_abs_err": max_err, "ms": ms, **table_split(args),
+        "plain_ms": plain_ms, "library_ms": isin_ms(args),
+        # the function's bytes: inputs read once, one bool out per probe row
+        **bound(in_bytes, probe_sig.shape[0], 0),
     }
     emit({"phase": "kernel_timing", **timing})
     return timing
@@ -331,7 +398,8 @@ def phase_e2e(name, db, plan, P, rows, bloom_bits=0) -> dict:
 
     from repro_torch.core.planner import MSJJob, job_writes
 
-    path_kernels = ["probe_bucketed"] + (["bloom_build", "bloom_probe"] if bloom_bits else [])
+    path_kernels = ["probe_bucketed", "table_build", "table_probe"] + (
+        ["bloom_build", "bloom_probe"] if bloom_bits else [])
     outputs = sorted(set().union(*(job_writes(j) for r in plan.rounds for j in r.jobs)))
     run_plan(db, plan, P, "auto", bloom_bits=bloom_bits)  # warm
     torch.cuda.reset_peak_memory_stats()
@@ -345,6 +413,7 @@ def phase_e2e(name, db, plan, P, rows, bloom_bits=0) -> dict:
     idle = [k for k in path_kernels if launches[k] <= 0]
     if idle:
         raise AssertionError(f"{name}: kernels of the path never launched: {idle}")
+    check_probe_launches(name, launches, "probe_bucketed")
     # the sorted reference path: compare the measured auto run's outputs
     # first, then free them before the sorted runs
     run_plan(db, plan, P, "sorted", bloom_bits=bloom_bits)  # warm
@@ -377,7 +446,8 @@ def phase_e2e(name, db, plan, P, rows, bloom_bits=0) -> dict:
                                 bloom_bits=bloom_bits)
     result = {
         "phase": "e2e", "plan": name, "rows_per_relation": rows, "P": P,
-        "bloom_bits": bloom_bits, "jobs": rep_a.n_jobs, "msj_backends": msj_backends,
+        "bloom_bits": bloom_bits, "probe_wrapper": "probe_bucketed", "jobs": rep_a.n_jobs,
+        "msj_backends": msj_backends,
         "launches": launches, "wall_auto_s": wall_a, "wall_sorted_s": wall_s,
         "bytes_shuffled": rep_a.bytes_shuffled(), **without,
         "forward_cap": [r.stats.get("forward_cap") for r in rep_a.records],
@@ -539,13 +609,13 @@ def phase_bloom_kernels(build_in, probe_in) -> dict:
 def phase_blocked(db, sjs, P, rows):
     import torch
 
-    from repro_torch.core.msj import run_msj
+    from repro_torch.core.msj import probe_sorted, run_msj
     from repro_torch.engine.comm import SimComm
     from repro_torch.kernels.msj_probe import ops, ref
 
     gen = torch.Generator(device=DEVICE).manual_seed(4321)
     cases = kernel_cases(gen)
-    main_case = capture_main_path_probe(db, sjs, P, probe_fn=ops.probe)
+    main_case, in_bytes = capture_main_path_probe(db, sjs, P, probe_fn=ops.probe)
     cases["main_path_shard0"] = main_case
     checked, max_err = {}, 0
     for name, (args, kwargs) in cases.items():
@@ -571,13 +641,13 @@ def phase_blocked(db, sjs, P, rows):
         "kw": int(build_keys.shape[1]), "valid_probe": n_valid_p, "valid_build": n_valid_b,
         "max_abs_err": max_err,
         "ms": cuda_ms(lambda: ops.probe(*args, **kwargs), REPS),
+        **table_split(args),
         "plain_ms": cuda_ms(lambda: ops.probe_blocked_plain(*args, **kwargs), 2),
         "library_ms": isin_ms(args),
-        # the sweep's work, not part of the bound: the function is the same
-        # existence probe as probe_bucketed's, which needs far fewer compares
+        # the plain version's work, not part of the bound
         "all_pairs": n_valid_p * n_valid_b,
         # inputs read once, one bool out per probe row
-        **bound(unique_bytes(list(args)), probe_sig.shape[0], 0),
+        **bound(in_bytes, probe_sig.shape[0], 0),
     }
     emit({"phase": "blocked_timing", **timing})
     del main_case, args, kwargs, cases
@@ -593,16 +663,23 @@ def phase_blocked(db, sjs, P, rows):
     peak = torch.cuda.max_memory_allocated()
     if launches["probe_blocked"] <= 0:
         raise AssertionError("blocked_probe: the all-pairs kernel was never launched")
-    t0 = time.perf_counter()
-    out_k, st_k = run_msj(db, sjs, SimComm(P), probe_fn=ops.probe_bucketed)
-    torch.cuda.synchronize()
-    wall_k = time.perf_counter() - t0
-    same_outputs(out_b, out_k, sorted(out_k), "all-pairs and bucketed probes")
-    stats = {k: int(v) for k, v in st_b.items()}
-    if stats != {k: int(v) for k, v in st_k.items()}:
-        raise AssertionError("blocked_probe: all-pairs and bucketed counters differ")
+    check_probe_launches("blocked_probe", launches, "probe_blocked")
+    runs, walls = {"all-pairs": (out_b, st_b)}, {}
+    for label, fn in (("bucketed", ops.probe_bucketed), ("sorted", probe_sorted)):
+        t0 = time.perf_counter()
+        runs[label] = run_msj(db, sjs, SimComm(P), probe_fn=fn)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+    # the witness: the sort-merge probe shares no code with the hash join
+    out_s, st_s = runs.pop("sorted")
+    stats = {k: int(v) for k, v in st_s.items()}
+    for label, (out, st) in runs.items():
+        same_outputs(out, out_s, sorted(out_s), f"{label} and sorted probes")
+        if {k: int(v) for k, v in st.items()} != stats:
+            raise AssertionError(f"blocked_probe: {label} and sorted counters differ")
     result = {"phase": "e2e", "plan": "blocked_probe", "rows_per_relation": rows, "P": P,
-              "launches": launches, "wall_blocked_s": wall_b, "wall_bucketed_s": wall_k,
+              "probe_wrapper": "probe_blocked", "launches": launches, "wall_blocked_s": wall_b,
+              "wall_bucketed_s": walls["bucketed"], "wall_sorted_s": walls["sorted"],
               "peak_mem_bytes": peak, "stats": stats, "bit_identical": True}
     emit(result)
     return timing, result
@@ -701,8 +778,8 @@ def main() -> int:
           "relations": {k: list(r.data.shape) for k, r in db.items()},
           "seconds": time.perf_counter() - t0})
 
-    main_case = capture_main_path_probe(db, sjs, P)
-    timing = phase_kernel(main_case)
+    main_case, in_bytes = capture_main_path_probe(db, sjs, P)
+    timing = phase_kernel(main_case, in_bytes)
     del main_case
 
     e2e = [phase_e2e("one_round", db, plan_one_round(qs), P, rows)]
@@ -738,9 +815,9 @@ def main() -> int:
     phase_oracle()
 
     sources = {
-        "probe_bucketed": ("src/repro_torch/kernels/msj_probe/csrc/probe_bucketed.cu",
+        "probe_bucketed": ("src/repro_torch/kernels/msj_probe/csrc/probe_hash.cu",
                            "src/repro/kernels/msj_probe/kernel.py:110"),
-        "probe_blocked": ("src/repro_torch/kernels/msj_probe/csrc/probe_bucketed.cu",
+        "probe_blocked": ("src/repro_torch/kernels/msj_probe/csrc/probe_hash.cu",
                           "src/repro/kernels/msj_probe/kernel.py:148"),
         "bloom_build": ("src/repro_torch/kernels/bloom/csrc/bloom.cu",
                         "src/repro/kernels/bloom/kernel.py:85"),
@@ -753,6 +830,10 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(r["launches"][name] for r in e2e),
+            **({"kernel_launches": {k: sum(r["launches"][k] for r in e2e
+                                           if r.get("probe_wrapper") == name)
+                                    for k in ("table_build", "table_probe")}}
+               if name.startswith("probe_") else {}),
             **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")},
             "shape": {k: t[k] for k in ("np", "nb", "kw", "n", "bits") if k in t},

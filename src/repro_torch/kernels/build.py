@@ -70,16 +70,18 @@ def build(src: Path) -> str:
     return log
 
 
-def check_inputs(kind: str, tensors, dev) -> None:
+def check_inputs(kind: str, tensors, dev, strided: bool = False) -> None:
     """Raise unless each ``(tensor, dtype)`` or ``(tensor, dtype, shape)`` is
-    a contiguous tensor of that dtype (and shape) on ``dev``: what a kernel
+    a tensor of that dtype (and shape) on ``dev``, and contiguous unless
+    ``strided`` (for a kernel that takes element strides): what a kernel
     launched through ``ctypes`` assumes of its pointers."""
     for t, dtype, *shape in tensors:
-        if (t.device != dev or t.dtype != dtype or not t.is_contiguous()
+        if (t.device != dev or t.dtype != dtype or not (strided or t.is_contiguous())
                 or (shape and tuple(t.shape) != tuple(shape[0]))):
             want = f" of shape {tuple(shape[0])}" if shape else ""
+            layout = "" if strided else "contiguous "
             raise ValueError(
-                f"{kind} kernel input must be a contiguous {dtype} tensor{want} on {dev}, "
+                f"{kind} kernel input must be a {layout}{dtype} tensor{want} on {dev}, "
                 f"got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
 

@@ -1,8 +1,9 @@
-"""Card tests of the port: each hand-written CUDA kernel (the bucketed and
-the all-pairs probe, bloom build and bloom probe) against its plain torch
-version and its oracle, and MSJ runs on the card (default, with the bloom
-prefilter, with the all-pairs probe) against the same runs on the CPU.  They need a CUDA device and skip without one; on a machine with
-a card run them with
+"""Card tests of the port: each hand-written CUDA kernel (the hash join
+behind the bucketed and the all-pairs probe, bloom build and bloom probe)
+against its plain torch version and its oracle, and MSJ runs on the card
+(default, with the bloom prefilter, with the all-pairs probe) against the
+same runs on the CPU.  They need a CUDA device and skip without one; on a
+machine with a card run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -57,7 +58,8 @@ def test_kernel_matches_plain_and_oracle(cuda, nb, np_, kw, key_range):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.equal(got, ref.probe(*args))
-    assert ops.probe_bucketed.launches == before + (1 if nb and np_ else 0)
+    # two kernels per hash join: table build, table probe
+    assert ops.probe_bucketed.launches == before + (2 if nb and np_ else 0)
 
 
 @pytest.mark.parametrize("collide", ["zero", "mod4"])
@@ -72,15 +74,75 @@ def test_kernel_exact_under_forced_collisions(cuda, collide):
     assert torch.equal(got, ref.probe(*args))
 
 
+def _distinct_case(nb, np_, kw, device, seed=11):
+    """Every build row valid and distinct, so the table holds nb rows; about
+    half the probe rows are build rows."""
+    rng = np.random.default_rng(seed)
+    b_keys = rng.permutation(4 * nb)[:nb].astype(np.int32)[:, None] - 2 * nb
+    b_keys = np.repeat(b_keys, kw, 1)
+    p_keys = rng.integers(-2 * nb, 2 * nb, (np_, 1)).astype(np.int32).repeat(kw, 1)
+    arrs = (np.zeros(nb, np.int32), b_keys, np.ones(nb, bool),
+            np.zeros(np_, np.int32), p_keys, rng.random(np_) < 0.9)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrs]
+
+
+@pytest.mark.parametrize("wrapper,plain", [
+    (ops.probe_bucketed, ops.probe_bucketed_plain), (ops.probe, ops.probe_blocked_plain),
+])
+@pytest.mark.parametrize("nb", [2**16, 2**16 + 1])
+def test_kernel_near_full_table(cuda, wrapper, plain, nb):
+    """2**16 distinct build rows fill 2**17 slots to the load limit of 0.5;
+    one more row doubles the table."""
+    args = _distinct_case(nb, 50_000, 2, cuda)
+    assert ops.table_slots(nb) == (2**17 if nb == 2**16 else 2**18)
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain(*args))
+    assert 0 < int(got.sum()) < int(args[5].sum())
+
+
+def test_blocked_kernel_ignores_colliding_fingerprints(cuda):
+    """fp = 0 on every row: the all-pairs wrapper ignores fingerprints and
+    stays exact."""
+    args = _case(8, 3000, 2500, 2, 20, cuda)
+    fps = (torch.zeros_like(args[1][:, 0]), torch.zeros_like(args[4][:, 0]))
+    got = ops.probe(*args, build_fp=fps[0], probe_fp=fps[1])
+    assert torch.equal(got, ops.probe_blocked_plain(*args))
+    assert torch.equal(got, ref.probe(*args))
+
+
+@pytest.mark.parametrize("fingerprints", [False, True])
+def test_hash_join_reads_strided_views(cuda, fingerprints):
+    """As in run_msj: both sides are column views of one received buffer
+    (row stride 4 words), read in place without a copy."""
+    rng = np.random.default_rng(9)
+    n = 5000
+    flat = torch.from_numpy(rng.integers(-40, 40, (n, 4)).astype(np.int32)).to(cuda)
+    flat[:, 0] = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(cuda)
+    kind = torch.from_numpy(rng.random(n) < 0.5).to(cuda)
+    ok = torch.from_numpy(rng.random(n) < 0.9).to(cuda)
+    sig, keys, fp = flat[:, 0], flat[:, 1:3], flat[:, 3]
+    assert keys.stride() == (4, 1) and not sig.is_contiguous()
+    kw = {"build_fp": fp, "probe_fp": fp} if fingerprints else {}
+    if fingerprints:  # a fingerprint must be a function of (sig, key)
+        fp.copy_(keys[:, 0] % 7)
+    args = (sig, keys, ok & kind, sig, keys, ok & ~kind)
+    got = ops.probe_bucketed(*args, **kw)
+    copies = [a.contiguous() for a in args]
+    assert torch.equal(got, ops.probe_bucketed_plain(*copies))
+    assert torch.equal(got, ref.probe(*copies))
+
+
 def _counts():
     return (ops.probe_bucketed.launches, ops.probe.launches, bloom.build.launches,
             bloom.probe.launches)
 
 
 @pytest.mark.parametrize("probe_fn,bloom_bits,launched", [
-    (ops.probe_bucketed, 0, (4, 0, 0, 0)),      # one probe per shard
-    (ops.probe_bucketed, 2**14, (4, 0, 4, 16)),  # + one build per shard, one probe per semi-join
-    (ops.probe, 0, (0, 4, 0, 0)),
+    (ops.probe_bucketed, 0, (8, 0, 0, 0)),      # a table build and a table probe per shard
+    # + a bloom build per shard, a bloom probe per semi-join and shard
+    (ops.probe_bucketed, 2**14, (8, 0, 4, 16)),
+    (ops.probe, 0, (0, 8, 0, 0)),
 ])
 def test_msj_on_card_equals_cpu(cuda, probe_fn, bloom_bits, launched):
     qs = queries.make_queries("A3")
@@ -111,7 +173,7 @@ def test_blocked_kernel_matches_plain_and_oracle(cuda, nb, np_, kw, key_range):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.equal(got, ref.probe(*args))
-    assert ops.probe.launches == before + (1 if nb and np_ else 0)
+    assert ops.probe.launches == before + (2 if nb and np_ else 0)
 
 
 @pytest.mark.parametrize("bits", [128, 1000, 2**16, 2**24])

@@ -47,5 +47,5 @@ def test_sources_ship_with_the_package():
     from repro_torch.kernels import build
 
     srcs = build.sources()
-    assert [s.name for s in srcs] == ["bloom.cu", "probe_bucketed.cu"]
+    assert [s.name for s in srcs] == ["bloom.cu", "probe_hash.cu"]
     assert all(build.lib_path(s).parent == build.BUILD_DIR for s in srcs)

@@ -1,14 +1,17 @@
 """Port differential: the MSJ probes.
 
 ``repro_torch``'s ``probe_bucketed`` (on CPU tensors: the plain band
-compare the CUDA kernel is held against on the card) and
+compare the CUDA hash join is held against on the card) and
 ``probe_bucketed_plain`` against the reference's Pallas ``probe_bucketed``
 run in interpret mode, its pure oracle ``ref.probe`` and the port's own
 oracles, on the reference's fingerprint corpus: empty sides, duplicate
 keys, dense collisions, wide keys, huge magnitudes, forced fingerprint
 collisions and ragged tile edges.  The unbucketed all-pairs ``probe`` and
 ``probe_blocked_plain`` against the reference's Pallas ``probe`` (interpret
-mode) on a shape grid.  Exact equality: hits are booleans."""
+mode) on a shape grid; the routing of CUDA tensors to the hash join and
+its table size.  Exact equality: hits are booleans."""
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -98,8 +101,8 @@ def test_probe_bucketed_ragged_tiles(n):
 
 
 def test_probe_bucketed_wide_key_rows():
-    """Many key columns: the kernel's shared-memory chunk shrinks with the
-    key width, the plain version's arithmetic does not change."""
+    """Many key columns: the card's hash join compares every word of each
+    candidate, the plain version's arithmetic does not change."""
     _check(_case(np.random.default_rng(5), 150, 130, 30, 1))
 
 
@@ -110,20 +113,87 @@ def test_probe_bucketed_randomized(seed):
     _check(_case(rng, nb, np_, int(rng.integers(1, 5)), int(rng.integers(1, 50))))
 
 
-def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
-    """The wrapper picks the plain band compare only for CPU tensors: a
-    CUDA input goes to the kernel launcher (here a stub standing in for
-    the card), never to the plain version."""
+@pytest.fixture
+def fake_card(monkeypatch):
+    """Stands in for the card at the ctypes entry points of the hash join:
+    each records its kernel's name and returns the next code of ``rcs``
+    (0 = launched, the default).  A test makes its CPU tensors claim to be
+    on CUDA itself."""
+    calls, rcs = [], []
+
+    def entry(name):
+        return lambda *args: calls.append(name) or (rcs.pop(0) if rcs else 0)
+
+    monkeypatch.setattr(ops, "_launchers", lambda: (entry("table_build"), entry("table_probe")))
+    monkeypatch.setattr(ops, "_stream", lambda dev: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    return calls, rcs
+
+
+def _on_card(monkeypatch):
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+
+
+def _launch_counts(wrapper):
+    return (wrapper.launches, ops.table_build_cuda.launches, ops.table_probe_cuda.launches)
+
+
+def test_cuda_tensor_never_takes_the_plain_path(monkeypatch, fake_card):
+    """The wrapper picks the plain band version only for CPU tensors: a
+    CUDA input reaches the hash join's two kernel entry points (stubbed
+    here), never the plain version, and is not sorted; each launch counts
+    once for the wrapper and once for its kernel."""
+    calls, _ = fake_card
     seen = []
-    monkeypatch.setattr(ops, "band_probe_cuda", lambda *a: seen.append("cuda") or a[2])
     monkeypatch.setattr(ops, "band_probe_plain", lambda *a: seen.append("plain") or a[2])
+    sorted_side = ops._sorted_side
+    monkeypatch.setattr(ops, "_sorted_side", lambda *a: seen.append("sort") or sorted_side(*a))
     case = [torch.from_numpy(a) for a in _case(np.random.default_rng(2), 8, 8, 1, 3)]
-    ops.probe_bucketed(*case)
-    assert seen == ["plain"]
-    probe_sig = case[3]
-    monkeypatch.setattr(type(probe_sig), "is_cuda", property(lambda self: True))
-    ops.probe_bucketed(*case)
-    assert seen == ["plain", "cuda"]
+    fps = {"build_fp": case[1][:, 0], "probe_fp": case[4][:, 0]}
+    before = _launch_counts(ops.probe_bucketed)
+    ops.probe_bucketed(*case, **fps)
+    assert seen == ["sort", "sort", "plain"] and calls == []
+    assert _launch_counts(ops.probe_bucketed) == before
+    _on_card(monkeypatch)
+    ops.probe_bucketed(*case, **fps)
+    assert seen == ["sort", "sort", "plain"] and calls == ["table_build", "table_probe"]
+    assert _launch_counts(ops.probe_bucketed) == tuple(b + d for b, d in zip(before, (2, 1, 1)))
+
+
+@pytest.mark.parametrize("rcs,counted", [
+    ([0, 0], (2, 1, 1)),    # both kernels launched
+    ([0, 700], (1, 1, 0)),  # the table probe failed to launch
+    ([700], (0, 0, 0)),     # the table build failed: the probe is not tried
+])
+def test_launch_counted_only_where_a_kernel_launched(monkeypatch, fake_card, rcs, counted):
+    calls, codes = fake_card
+    codes.extend(rcs)
+    case = [torch.from_numpy(a) for a in _case(np.random.default_rng(3), 8, 8, 1, 3)]
+    _on_card(monkeypatch)
+    before = _launch_counts(ops.probe)
+    if rcs[-1]:
+        with pytest.raises(RuntimeError, match="CUDA error 700"):
+            ops.probe(*case)
+    else:
+        ops.probe(*case)
+    assert calls == ["table_build", "table_probe"][: len(rcs)]
+    assert _launch_counts(ops.probe) == tuple(b + d for b, d in zip(before, counted))
+
+
+def test_hash_join_checks_its_inputs_once(monkeypatch, fake_card):
+    """One validator for both sides: strided views pass (the kernels take
+    element strides), a wrong dtype or key width raises before any launch."""
+    calls, _ = fake_card
+    _on_card(monkeypatch)
+    flat = torch.zeros((10, 4), dtype=torch.int32)
+    ok = torch.ones(10, dtype=torch.bool)
+    ops.hash_probe_cuda(flat[:, 0], flat[:, 1:3], ok, flat[:, 0], flat[:, 1:3], ok)
+    assert calls == ["table_build", "table_probe"]
+    with pytest.raises(ValueError, match="int32"):
+        ops.hash_probe_cuda(flat[:, 0], flat[:, 1:3].long(), ok, flat[:, 0], flat[:, 1:3], ok)
+    with pytest.raises(ValueError, match="probe side"):
+        ops.hash_probe_cuda(flat[:, 0], flat[:, 1:3], ok, flat[:, 0], flat[:, 1:2], ok)
+    assert calls == ["table_build", "table_probe"]
 
 
 def test_launch_counter_untouched_on_cpu():
@@ -175,14 +245,42 @@ def test_probe_blocked_plain_chunks(monkeypatch):
     np.testing.assert_array_equal(_port(case, fn=ops.probe_blocked_plain), want)
 
 
-def test_probe_blocked_cuda_tensor_never_takes_the_plain_path(monkeypatch):
+def test_probe_blocked_cuda_tensor_never_takes_the_plain_path(monkeypatch, fake_card):
+    calls, _ = fake_card
     seen = []
-    monkeypatch.setattr(ops, "allpairs_cuda", lambda *a: seen.append("cuda") or a[1])
     monkeypatch.setattr(ops, "allpairs_plain", lambda *a: seen.append("plain") or a[1])
     case = [torch.from_numpy(a) for a in _case(np.random.default_rng(2), 8, 8, 1, 3)]
-    before = ops.probe.launches
+    before = _launch_counts(ops.probe)
     ops.probe(*case)
-    assert seen == ["plain"] and ops.probe.launches == before
-    monkeypatch.setattr(type(case[3]), "is_cuda", property(lambda self: True))
-    ops.probe(*case)
-    assert seen == ["plain", "cuda"]
+    assert seen == ["plain"] and calls == [] and _launch_counts(ops.probe) == before
+    _on_card(monkeypatch)
+    ops.probe(*case, build_fp=case[1][:, 0], probe_fp=case[4][:, 0])
+    assert seen == ["plain"] and calls == ["table_build", "table_probe"]
+    assert _launch_counts(ops.probe) == tuple(b + d for b, d in zip(before, (2, 1, 1)))
+
+
+@pytest.mark.parametrize("nb,slots", [
+    (0, 1), (1, 2), (2, 4), (3, 8), (2**16, 2**17), (2**16 + 1, 2**18),
+    (15_120_032, 2**25),  # shard 0 of the main path at 2**25 rows
+    (2**31 - 1, 2**32),
+])
+def test_table_slots(nb, slots):
+    """The hash table's size: the next power of two >= 2 * NB, from the
+    row count alone (no read of the valid count), so the load is <= 0.5."""
+    assert ops.table_slots(nb) == slots
+    assert slots >= 2 * nb and (slots == 1 or slots < 4 * nb)
+
+
+def test_table_slots_rejects_rows_beyond_int32():
+    with pytest.raises(ValueError, match="int32"):
+        ops.table_slots(2**31)
+
+
+def test_hash_probe_launcher_rejects_cpu_tensors():
+    """The launcher takes CUDA tensors only; it raises before building
+    anything, and nothing is counted."""
+    case = [torch.from_numpy(a) for a in _case(np.random.default_rng(4), 8, 8, 1, 3)]
+    before = _launch_counts(ops.probe)
+    with pytest.raises(ValueError, match="cuda"):
+        ops.hash_probe_cuda(*case, counter=ops.probe)
+    assert _launch_counts(ops.probe) == before
