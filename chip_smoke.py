@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--log2-rows 25]
+    python3 chip_smoke.py [--seed 0] [--log2-rows 25] [--compare-with TREE]
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
@@ -30,11 +30,17 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    wrapper's count must be its table-build plus table-probe launches.  One more ``auto``
    run with a synchronizing tracer splits the wall into the operators'
    phases (count, bloom, shuffle, probe, scatter, EVAL).
-5. ``bloom``   — the bloom build and probe kernels against their plain
-   versions, exactly, on a case list (bits 128 to 2**24; 0, 1 and ragged
-   row counts; all rows inactive; every row on one bit; positions at the
-   last bit) and on shard 0's inputs captured from the bloom run below;
-   times kernel, plain version and the one-call torch yardstick there.
+5. ``bloom``   — the bloom build, pack and packed-probe kernels of
+   ``csrc/bloom.cu`` (each row hashed in the kernel) against their plain
+   versions from ``positions``, exactly, on a case list (bits 128 to 2**24,
+   384 and 1000 among them; 0, 1 and ragged row counts; KW = 2 column
+   views with a stride-0 signature; all rows inactive; one row repeated;
+   rows whose positions hit the last bit or bit 31 of a word) and on shard
+   0's wrapper inputs captured from the bloom run below (the build's rows;
+   the received stack and the first probe's rows).  Times there each
+   kernel alone, each wrapper as ``run_msj`` calls it, the plain version
+   and the one-call torch yardstick.  ``--compare-with TREE`` also times
+   another checkout's bloom wrappers on the same inputs, in turns.
    Then ``e2e`` ``one_round_bloom``: the 1-ROUND plan on the GREEDY
    phase's database with ``bloom_bits`` = one bit per guard row, held
    bit-identical between ``auto`` and ``sorted`` and equal in outputs and
@@ -111,7 +117,8 @@ def counters() -> dict:
 
     return {"probe_bucketed": ops.probe_bucketed, "probe_blocked": ops.probe,
             "table_build": ops.table_build_cuda, "table_probe": ops.table_probe_cuda,
-            "bloom_build": bloom_ops.build, "bloom_probe": bloom_ops.probe}
+            "bloom_build": bloom_ops.build, "bloom_pack": bloom_ops.pack,
+            "bloom_probe": bloom_ops.probe_packed}
 
 
 def check_probe_launches(name, launches, wrapper) -> None:
@@ -214,22 +221,32 @@ def _view_key(t):
             tuple((n, st) for n, st in zip(t.shape, t.stride()) if n != 1))
 
 
+def _compact(t):
+    """The elements a view reads: each stride-0 (broadcast) dim cut to one."""
+    return t[tuple(slice(0, 1) if st == 0 else slice(None) for st in t.stride())]
+
+
 def distinct_bytes(tensors) -> int:
-    """Bytes a function must read of ``tensors``: each distinct view once."""
-    return sum({_view_key(t): t.numel() * t.element_size() for t in tensors}.values())
+    """Bytes a function must read of ``tensors``: each distinct view once,
+    a broadcast view's element once."""
+    return sum({_view_key(t): _compact(t).numel() * t.element_size()
+                for t in tensors}.values())
 
 
 def copy_inputs(tensors) -> list:
     """Contiguous copies that keep the call's aliasing: views of the same
-    elements share one copy, so a kernel reads them as it did on the main
-    path.  (Copies, because views would keep the whole exchange alive.)"""
+    elements share one copy, and a broadcast view stays a broadcast of one
+    copied element, so a kernel reads them as it did on the main path.
+    (Copies, because views would keep the whole exchange alive.)"""
     import torch
 
     distinct = {}
     for t in tensors:
         if _view_key(t) not in distinct:
-            distinct[_view_key(t)] = t.clone(memory_format=torch.contiguous_format)
-    return [distinct[_view_key(t)].view(t.shape) for t in tensors]
+            distinct[_view_key(t)] = _compact(t).clone(memory_format=torch.contiguous_format)
+    copies = [distinct[_view_key(t)] for t in tensors]
+    return [c.view(t.shape) if c.numel() == t.numel() else c.expand(t.shape)
+            for c, t in zip(copies, tensors)]
 
 
 def capture_main_path_probe(db, sjs, P, probe_fn=None):
@@ -399,7 +416,7 @@ def phase_e2e(name, db, plan, P, rows, bloom_bits=0) -> dict:
     from repro_torch.core.planner import MSJJob, job_writes
 
     path_kernels = ["probe_bucketed", "table_build", "table_probe"] + (
-        ["bloom_build", "bloom_probe"] if bloom_bits else [])
+        ["bloom_build", "bloom_pack", "bloom_probe"] if bloom_bits else [])
     outputs = sorted(set().union(*(job_writes(j) for r in plan.rounds for j in r.jobs)))
     run_plan(db, plan, P, "auto", bloom_bits=bloom_bits)  # warm
     torch.cuda.reset_peak_memory_stats()
@@ -464,141 +481,337 @@ def phase_e2e(name, db, plan, P, rows, bloom_bits=0) -> dict:
 
 
 def capture_bloom_inputs(db, sjs, P, bits):
-    """Shard 0's inputs of the bloom build kernel and of the first bloom
-    probe from one MSJ run with the prefilter: ``((pos, mask, nw), (pos,
-    filt))``, copied."""
+    """Shard 0's inputs of the bloom wrappers from one MSJ run with the
+    prefilter, as ``run_msj`` passes them: ``(build_in, probe_in)`` with
+    ``build_in = (keys, sigs, mask, fp)`` of the build and ``probe_in =
+    (recv_words, keys, sig, fp)`` of the pack and the first packed probe
+    (copied with their aliasing; the signature stays a stride-0 view)."""
+    import types
+
     import torch
 
-    from repro_torch.core.msj import run_msj
+    from repro_torch.core import msj
     from repro_torch.engine.comm import SimComm
     from repro_torch.kernels.bloom import ops as bloom_ops
     from repro_torch.kernels.msj_probe import ops
 
-    real = {"build_cuda": bloom_ops.build_cuda, "probe_cuda": bloom_ops.probe_cuda}
+    real = {name: getattr(bloom_ops, name) for name in ("build", "pack", "probe_packed")}
     seen = {}
 
     def recording(name):
-        def launch(*a):
+        def call(*a, **kw):
             if name not in seen:
-                seen[name] = tuple(x.clone() if torch.is_tensor(x) else x for x in a)
-            return real[name](*a)
-        return launch
+                args = (*a, *kw.values())
+                copies = iter(copy_inputs([x for x in args if torch.is_tensor(x)]))
+                seen[name] = tuple(next(copies) if torch.is_tensor(x) else x for x in args)
+            return real[name](*a, **kw)
+        return call
 
+    # run_msj reaches the wrappers through its module's ``bloom_ops``: stand
+    # that in, so the wrappers and their counters stay as they are
+    msj.bloom_ops = types.SimpleNamespace(**{name: recording(name) for name in real})
     try:
-        for name in real:
-            setattr(bloom_ops, name, recording(name))
-        run_msj(db, sjs, SimComm(P), bloom_bits=bits, probe_fn=ops.probe_bucketed)
+        msj.run_msj(db, sjs, SimComm(P), bloom_bits=bits, probe_fn=ops.probe_bucketed)
     finally:
-        for name, fn in real.items():
-            setattr(bloom_ops, name, fn)
-    return seen["build_cuda"], seen["probe_cuda"]
+        msj.bloom_ops = bloom_ops
+    keys, sigs, mask, b, fp = seen["build"]
+    _, pkeys, psig, b2, pfp = seen["probe_packed"]
+    assert b == b2 == bits
+    return (keys, sigs, mask, fp), (seen["pack"][0], pkeys, psig, pfp)
+
+
+def bloom_rows(gen, n, kw=1, fp=False, sig_range=4):
+    """``(keys, sigs, mask, fp)`` on the card: random int32 keys, fp the
+    first key column or None."""
+    import torch
+
+    keys = torch.randint(-(2**31), 2**31, (n, kw), generator=gen, dtype=torch.int64,
+                         device=DEVICE).to(torch.int32)
+    sigs = torch.randint(0, sig_range, (n,), generator=gen, device=DEVICE).to(torch.int32)
+    mask = torch.rand(n, generator=gen, device=DEVICE) < 0.6
+    return keys, sigs, mask, (keys[:, 0] if fp else None)
 
 
 def bloom_cases(gen) -> dict:
-    """``name -> (pos, mask, n_words)`` on the card."""
+    """``name -> ((keys, sigs, mask, fp), bits)`` on the card: bits 128 to
+    2**24 (384 and 1000 not powers of two of 128 words); 0, 1 and ragged
+    row counts; KW = 2 views of one buffer with a stride-0 signature; all
+    rows inactive; every row the same; rows picked because a position of
+    theirs is the last bit or bit 31 of a word."""
     import torch
 
     from repro_torch.kernels.bloom import ops as bloom_ops
 
-    def ints(lo, hi, *shape):
-        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int64,
-                             device=DEVICE).to(torch.int32)
-
     cases = {}
-    for bits in (128, 1000, 2**16, 2**20, 2**24):
+    for bits in (128, 384, 1000, 2**16, 2**20, 2**24):
         for n in (0, 1, 1000, 70_001):
-            keys, sigs = ints(-(2**31), 2**31, n, 1), ints(0, 4, n)
-            fp = keys[:, 0] if n % 2 else None
-            mask = torch.rand(n, generator=gen, device=DEVICE) < 0.6
-            cases[f"bits{bits}_n{n}"] = (bloom_ops.positions(keys, sigs, bits, fp=fp), mask,
-                                         bloom_ops.n_words(bits))
-    n, nw = 50_000, bloom_ops.n_words(2**24)
-    last = nw * bloom_ops.LANES - 1
-    pos = ints(0, last + 1, n, 2)
-    ones = torch.ones(n, dtype=torch.bool, device=DEVICE)
-    at_last = pos.clone()
-    at_last[::3] = last
-    cases["all_inactive"] = (pos, torch.zeros_like(ones), nw)
-    cases["one_bit"] = (torch.full_like(pos, 77), ones, nw)
-    cases["last_bit"] = (at_last, ones, nw)
+            cases[f"bits{bits}_n{n}"] = (bloom_rows(gen, n, fp=n % 2 == 1), bits)
+    n, bits = 50_000, 2**16
+    flat = bloom_rows(gen, n, kw=4)[0]
+    sig0 = torch.full((1,), 2, dtype=torch.int32, device=DEVICE).expand(n)
+    mask = torch.rand(n, generator=gen, device=DEVICE) < 0.5
+    cases["kw2_views_stride0_sig"] = ((flat[:, 1:3], sig0, mask, None), bits)
+    cases["fp_view_stride0_sig"] = ((flat[:, 1:3], sig0, mask, flat[:, 3]), bits)
+    keys, sigs, mask, _ = bloom_rows(gen, n)
+    cases["all_inactive"] = ((keys, sigs, torch.zeros_like(mask), None), bits)
+    cases["one_row_many_times"] = ((keys[:1].expand(n, 1).contiguous(), sigs[:1].expand(n)
+                                    .contiguous(), torch.ones_like(mask), None), bits)
+    keys, sigs, mask, _ = bloom_rows(gen, 200_000, kw=2)
+    pos = bloom_ops.positions(keys, sigs, 2**12)
+    for name, hit in (("last_bit", pos == 2**12 - 1), ("bit31", (pos & 31) == 31)):
+        rows = hit.any(1) | (torch.arange(pos.shape[0], device=DEVICE) % 50 == 0)
+        cases[name] = ((keys[rows], sigs[rows], torch.ones_like(mask[rows]), None), 2**12)
     return cases
 
 
-def bloom_check(pos, mask, nw) -> int:
-    """Build and probe on the card against their plain versions, exactly;
-    the probe also against a filter of every other active row, so that it
-    answers both ways.  Returns the max |diff| (0 or it raises)."""
+def max_diff(a, b) -> int:
+    import torch
+
+    if a.shape != b.shape:
+        raise AssertionError(f"shapes differ: {tuple(a.shape)} and {tuple(b.shape)}")
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
+
+
+def bloom_check(rows, bits) -> int:
+    """The build, pack and probes on the card against their plain versions
+    from ``positions``, exactly: the filter, ``probe`` of it, ``pack`` of a
+    stack of it and a filter of every other active row (so the probe answers
+    both ways) and ``probe_packed`` of that.  Returns the max |diff| (0 or
+    it raises)."""
     import torch
 
     from repro_torch.kernels.bloom import ops as bloom_ops
 
-    half = mask & (torch.arange(mask.shape[0], device=mask.device) % 2 == 0)
-    err = 0
-    for m in (mask, half):
-        filt = bloom_ops.build_cuda(pos, m, nw)
-        want = bloom_ops.build_plain(pos, m, nw)
-        found = bloom_ops.probe_cuda(pos, filt)
-        want_found = bloom_ops.probe_plain(pos, filt)
-        torch.cuda.synchronize()
-        for a, b in ((filt, want), (found.to(torch.int32), want_found.to(torch.int32))):
-            if a.numel():
-                err = max(err, int((a - b).abs().max()))
-        if not (torch.equal(filt, want) and torch.equal(found, want_found)) or err:
-            raise AssertionError(f"bloom kernel != plain: max |diff| {err}")
-        if not bool(found[m].all()):
-            raise AssertionError("bloom probe kernel: a false negative")
+    keys, sigs, mask, fp = rows
+    half = mask & (torch.arange(mask.shape[0], device=DEVICE) % 2 == 0)
+    nw = bloom_ops.n_words(bits)
+    got = {"filt": bloom_ops.build(keys, sigs, mask, bits, fp=fp),
+           "half": bloom_ops.build(keys, sigs, half, bits, fp=fp)}
+    got["found"] = bloom_ops.probe(got["half"], keys, sigs, bits, fp=fp)
+    stack = torch.stack([got["half"], got["filt"]])
+    got["packed"] = bloom_ops.pack(stack)
+    got["packed_half"] = bloom_ops.pack(got["half"])
+    got["found_packed"] = bloom_ops.probe_packed(got["packed_half"], keys, sigs, bits, fp=fp)
+    got["found_all"] = bloom_ops.probe_packed(got["packed"], keys, sigs, bits, fp=fp)
+    torch.cuda.synchronize()
+    pos = bloom_ops.positions(keys, sigs, bits, fp=fp)
+    want = {"filt": bloom_ops.build_plain(pos, mask, nw),
+            "half": bloom_ops.build_plain(pos, half, nw)}
+    want["found"] = bloom_ops.probe_plain(pos, want["half"])
+    want["packed"] = bloom_ops.pack_plain(torch.stack([want["half"], want["filt"]]))
+    want["packed_half"] = bloom_ops.pack_plain(want["half"])
+    want["found_packed"] = want["found"]
+    want["found_all"] = bloom_ops.probe_packed_plain(want["packed"], pos)
+    err = max(max_diff(got[k], want[k]) for k in want)
+    if err or not all(torch.equal(got[k], want[k]) for k in want):
+        bad = [k for k in want if not torch.equal(got[k], want[k])]
+        raise AssertionError(f"bloom kernels != plain on {bad}: max |diff| {err}")
+    if not (bool(got["found"][half].all()) and bool(got["found_all"][mask].all())):
+        raise AssertionError("bloom probe kernel: a false negative")
     return err
 
 
-def phase_bloom_kernels(build_in, probe_in) -> dict:
+def hash_ops(n, kw, fp) -> int:
+    """Integer operations of ``positions`` for n rows, from the kernel's
+    source: mix32 is 8 (three shifts, three xors, two multiplies); with fp,
+    mix32(sig), one xor and per probe an xor, a mix32 and a modulo; without,
+    per probe and column (the signature first) two shifts, three adds, an
+    xor and a mix32, and a modulo; then per probe the word index, the bit
+    mask and the bit operation (3)."""
+    per_probe = 10 if fp else 14 * (kw + 1) + 1
+    return n * ((9 if fp else 0) + 2 * (per_probe + 3))
+
+
+def pack_bound(recv) -> dict:
+    """pack: the stack read once, the packed bitset written once; a max and
+    a compare per source and bit."""
+    s, nw, lanes = recv.shape
+    return bound(s * nw * lanes * 4, nw * lanes // 8, 2 * s * nw * lanes)
+
+
+def probe_bound(keys, sig, fp, words_read) -> dict:
+    """probe: the key or fp column and the signature (each distinct view
+    once), the distinct packed words it tests, one byte out per row."""
+    col = keys if fp is None else fp
+    n = sig.shape[0]
+    return bound(distinct_bytes([col, sig]) + 4 * words_read, n,
+                 hash_ops(n, keys.shape[1], fp is not None))
+
+
+def build_bound(keys, sigs, mask, fp, nbits) -> dict:
+    """build: 9 bytes per row (a key or fp word, the signature, the mask
+    byte) read once, the int32 filter written once."""
+    col = keys if fp is None else fp
+    return bound(distinct_bytes([col, sigs, mask]), nbits * 4,
+                 hash_ops(sigs.shape[0], keys.shape[1], fp is not None))
+
+
+def kernel_ms(fn, reps: int = REPS) -> float:
+    """Device time of ``fn`` alone: CUDA events around each call, mean of
+    ``reps`` after one warm-up.  The calls queue up behind a ~5 ms spin of
+    the card, so the card does not wait for the host between them."""
+    import torch
+
+    fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda._sleep(10_000_000)
+    for a, b in events:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / reps
+
+
+def phase_bloom_kernels(build_in, probe_in, bits) -> dict:
     import torch
 
     from repro_torch.kernels.bloom import ops as bloom_ops
 
     gen = torch.Generator(device=DEVICE).manual_seed(2345)
     cases = bloom_cases(gen)
-    cases["main_path_shard0"] = build_in
+    cases["main_path_shard0"] = (build_in, bits)
     checked, max_err = {}, 0
-    for name, (pos, mask, nw) in cases.items():
-        max_err = max(max_err, bloom_check(pos, mask, nw))
-        checked[name] = {"n": int(pos.shape[0]), "bits": nw * bloom_ops.LANES,
-                         "active": int(mask.sum())}
-    # the probe's own main-path inputs: the OR of all shards' filters
-    pos, filt = probe_in
-    found = bloom_ops.probe_cuda(pos, filt)
-    if not torch.equal(found, bloom_ops.probe_plain(pos, filt)):
-        raise AssertionError("bloom probe kernel != plain on the main-path probe inputs")
+    for name, (rows, b) in cases.items():
+        max_err = max(max_err, bloom_check(rows, b))
+        checked[name] = {"n": int(rows[1].shape[0]), "kw": int(rows[0].shape[1]),
+                         "bits": bloom_ops.n_words(b) * bloom_ops.LANES,
+                         "fp": rows[3] is not None, "active": int(rows[2].sum())}
+    # the pack and the first probe on their own main-path inputs, against
+    # the plain versions and the parent's path (amax, then a gather)
+    recv, keys, sig, fp = probe_in
+    packed = bloom_ops.pack(recv)
+    found = bloom_ops.probe_packed(packed, keys, sig, bits, fp=fp)
+    pos = bloom_ops.positions(keys, sig, bits, fp=fp)
+    want_packed = bloom_ops.pack_plain(recv)
+    want_found = bloom_ops.probe_packed_plain(want_packed, pos)
+    err = max(max_diff(packed, want_packed), max_diff(found, want_found))
+    if err or not torch.equal(found, bloom_ops.probe_plain(pos, recv.amax(dim=0))):
+        raise AssertionError(f"bloom pack / probe != plain on the main-path inputs: {err}")
     emit({"phase": "bloom_check", "cases": checked, "max_abs_err": max_err})
 
-    pos_b, mask_b, nw = build_in
+    keys_b, sigs_b, mask_b, fp_b = build_in
+    nw = bloom_ops.n_words(bits)
     nbits = nw * bloom_ops.LANES
-    # the yardsticks' int64 indices, made once outside the timed calls
+    # the yardsticks' inputs (int64 indices, the OR-ed filter), made once
+    pos_b = bloom_ops.positions(keys_b, sigs_b, bits, fp=fp_b)
     active_idx = pos_b[mask_b].reshape(-1).long()
-    pos_idx = pos.long()
+    filt_or = recv.amax(dim=0)
+    flat, pos_idx = filt_or.reshape(-1), pos.long()
+    scratch = torch.empty((nbits // 32,), dtype=torch.int32, device=DEVICE)
+    out = torch.empty((nw, bloom_ops.LANES), dtype=torch.int32, device=DEVICE)
+    build_args = bloom_ops._rows("build", keys_b, sigs_b, fp_b, ())
+    cap = sig.shape[0]
+    sig_of_sj = sig[:1].clone()
+
+    def build_entry():  # the one entry point alone, on buffers made once
+        bloom_ops._launch(bloom_ops.build, 0, None, sigs_b.device, *build_args,
+                          mask_b.data_ptr(), sigs_b.shape[0], nbits, scratch.data_ptr(),
+                          out.data_ptr())
+
+    def probe_as_msj():  # stage_map: the stride-0 signature view, then the probe
+        return bloom_ops.probe_packed(packed, keys, sig_of_sj[0:1].expand(cap), bits, fp=fp)
+
     build_t = {
-        "n": int(pos_b.shape[0]), "active": int(mask_b.sum()), "bits": nbits,
+        "n": int(sigs_b.shape[0]), "kw": int(keys_b.shape[1]), "fp": fp_b is not None,
+        "active": int(mask_b.sum()), "bits": nbits,
+        "bits_set": int(bloom_ops.build(keys_b, sigs_b, mask_b, bits, fp=fp_b).sum()),
         "max_abs_err": max_err,
-        "ms": cuda_ms(lambda: bloom_ops.build_cuda(pos_b, mask_b, nw), REPS),
-        "plain_ms": cuda_ms(lambda: bloom_ops.build_plain(pos_b, mask_b, nw), REPS // 5),
+        "ms": kernel_ms(build_entry),
+        "wrapper_ms": cuda_ms(lambda: bloom_ops.build(keys_b, sigs_b, mask_b, bits, fp=fp_b),
+                              REPS),
+        "plain_ms": cuda_ms(lambda: bloom_ops.build_plain(
+            bloom_ops.positions(keys_b, sigs_b, bits, fp=fp_b), mask_b, nw), REPS // 5),
         "library_ms": cuda_ms(lambda: torch.zeros(nbits, dtype=torch.int32, device=DEVICE)
                               .scatter_(0, active_idx, 1), REPS),
-        # positions and mask read once, the whole filter written once
-        **bound(pos_b.numel() * 4 + mask_b.numel(), nbits * 4, 2 * int(mask_b.sum())),
+        **build_bound(keys_b, sigs_b, mask_b, fp_b, nbits),
     }
-    flat = filt.reshape(-1)
+    pack_t = {
+        "sources": int(recv.shape[0]), "bits": nbits, "max_abs_err": max(max_err, err),
+        "ms": kernel_ms(lambda: bloom_ops.pack(recv)),
+        "wrapper_ms": cuda_ms(lambda: bloom_ops.pack(recv), REPS),
+        "plain_ms": cuda_ms(lambda: bloom_ops.pack_plain(recv), REPS // 5),
+        "library_ms": cuda_ms(lambda: recv.amax(dim=0), REPS),
+        **pack_bound(recv),
+    }
     probe_t = {
-        "n": int(pos.shape[0]), "bits": int(filt.numel()), "max_abs_err": max_err,
-        "bits_set": int((filt > 0).sum()), "found": int(found.sum()),
-        "ms": cuda_ms(lambda: bloom_ops.probe_cuda(pos, filt), REPS),
-        "plain_ms": cuda_ms(lambda: bloom_ops.probe_plain(pos, filt), REPS // 5),
+        "n": int(cap), "kw": int(keys.shape[1]), "fp": fp is not None, "bits": nbits,
+        "max_abs_err": max(max_err, err), "bits_set": int((filt_or > 0).sum()),
+        "found": int(found.sum()),
+        "ms": kernel_ms(lambda: bloom_ops.probe_packed(packed, keys, sig, bits, fp=fp)),
+        "wrapper_ms": cuda_ms(probe_as_msj, REPS),
+        "plain_ms": cuda_ms(lambda: bloom_ops.probe_packed_plain(
+            packed, bloom_ops.positions(keys, sig, bits, fp=fp)), REPS // 5),
+        # a gather of the OR-ed int32 filter at positions made beforehand
         "library_ms": cuda_ms(lambda: torch.take(flat, pos_idx).all(1), REPS),
-        # positions read once, each distinct filter word it needs once, one
-        # bool out per row; two compares per row
-        **bound(pos.numel() * 4 + torch.unique(pos).numel() * 4, pos.shape[0],
-                2 * pos.shape[0]),
+        **probe_bound(keys, sig, fp, int(torch.unique(pos >> 5).numel())),
     }
-    emit({"phase": "bloom_timing", "build": build_t, "probe": probe_t})
-    return {"bloom_build": build_t, "bloom_probe": probe_t}
+    emit({"phase": "bloom_timing", "build": build_t, "pack": pack_t, "probe": probe_t})
+    return {"bloom_build": build_t, "bloom_pack": pack_t, "bloom_probe": probe_t}
+
+
+def load_bloom_ops(tree: Path):
+    """The bloom ops module of another checkout of the port (its kernels
+    built from its own ``bloom.cu``), imported beside this one's."""
+    import importlib.util
+
+    path = tree / "src" / "repro_torch" / "kernels" / "bloom" / "ops.py"
+    spec = importlib.util.spec_from_file_location("compared_bloom_ops", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_bloom_compare(tree: Path, build_in, probe_in, bits, timings) -> dict:
+    """The bloom wrappers of this tree and of ``tree`` as ``run_msj`` calls
+    them, on shard 0's main-path inputs, in turns (other, this, this,
+    other): the build; per shard what turns the received stack into the
+    filter the probes read (``amax`` before the packed bitset, ``pack``
+    since); per semi-join the signature column and the probe.  Each time
+    beside this tree's bound of the same work."""
+    import torch
+
+    from repro_torch.kernels.bloom import ops as this
+
+    other = load_bloom_ops(tree)
+    keys_b, sigs_b, mask_b, fp_b = build_in
+    recv, keys, sig, fp = probe_in
+    cap, sig_id = sig.shape[0], int(sig[0])
+
+    sig_of_sj = sig[:1].clone()
+
+    def wrappers(mod):
+        if hasattr(mod, "pack"):
+            shard = mod.pack(recv)
+            def probe():
+                return mod.probe_packed(shard, keys, sig_of_sj[0:1].expand(cap), bits, fp=fp)
+            per_shard = lambda: mod.pack(recv)  # noqa: E731
+        else:
+            shard = recv.amax(dim=0)
+            def probe():
+                s = torch.full((cap,), sig_id, dtype=torch.int32, device=DEVICE)
+                return mod.probe(shard, keys, s, bits, fp=fp)
+            per_shard = lambda: recv.amax(dim=0)  # noqa: E731
+        return {"build": lambda: mod.build(keys_b, sigs_b, mask_b, bits, fp=fp_b),
+                "per_shard": per_shard, "probe": probe}
+
+    runs = {"other": wrappers(other), "this": wrappers(this)}
+    for name in ("build", "probe"):
+        a, b = runs["other"][name](), runs["this"][name]()
+        if not torch.equal(a, b):
+            raise AssertionError(f"bloom {name}: this tree and {tree} differ")
+    result = {"phase": "bloom_compare", "tree": str(tree)}
+    bounds = {"build": timings["bloom_build"], "per_shard": timings["bloom_pack"],
+              "probe": timings["bloom_probe"]}
+    for name in ("build", "per_shard", "probe"):
+        ms = {}
+        for label in ("other", "this", "this", "other"):
+            ms.setdefault(label, []).append(cuda_ms(runs[label][name], REPS))
+        result[name] = {"other_ms": ms["other"], "this_ms": ms["this"],
+                        "bound_ms": bounds[name]["bound_ms"]}
+    emit(result)
+    return result
 
 
 # --------------------------------------------------------------------------
@@ -736,6 +949,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log2-rows", type=int, default=25)
+    ap.add_argument("--compare-with", metavar="TREE",
+                    help="another checkout of the port: time its bloom wrappers beside "
+                         "this tree's on the same main-path inputs")
     args = ap.parse_args()
 
     import torch
@@ -796,7 +1012,10 @@ def main() -> int:
     # the bloom prefilter on the same database, one bit per guard row
     bloom_bits = g_rows
     build_in, probe_in = capture_bloom_inputs(gdb, sjs, P, bloom_bits)
-    timings = {"probe_bucketed": timing, **phase_bloom_kernels(build_in, probe_in)}
+    timings = {"probe_bucketed": timing, **phase_bloom_kernels(build_in, probe_in, bloom_bits)}
+    if args.compare_with:
+        phase_bloom_compare(Path(args.compare_with).resolve(), build_in, probe_in, bloom_bits,
+                            timings)
     del build_in, probe_in
     e2e.append(phase_e2e("one_round_bloom", gdb, plan_one_round(qs), P, g_rows,
                          bloom_bits=bloom_bits))
@@ -821,6 +1040,8 @@ def main() -> int:
                           "src/repro/kernels/msj_probe/kernel.py:148"),
         "bloom_build": ("src/repro_torch/kernels/bloom/csrc/bloom.cu",
                         "src/repro/kernels/bloom/kernel.py:85"),
+        "bloom_pack": ("src/repro_torch/kernels/bloom/csrc/bloom.cu",
+                       "src/repro/kernels/bloom/kernel.py:106"),
         "bloom_probe": ("src/repro_torch/kernels/bloom/csrc/bloom.cu",
                         "src/repro/kernels/bloom/kernel.py:106"),
     }
@@ -836,7 +1057,8 @@ def main() -> int:
                if name.startswith("probe_") else {}),
             **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")},
-            "shape": {k: t[k] for k in ("np", "nb", "kw", "n", "bits") if k in t},
+            **({"wrapper_ms": t["wrapper_ms"]} if "wrapper_ms" in t else {}),
+            "shape": {k: t[k] for k in ("np", "nb", "kw", "n", "sources", "bits") if k in t},
         })
     emit({"kernels": kernels, "seconds_total": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -835,9 +835,10 @@ class _MSJKit:
         def stage_map(sid, carry_in):
             if use_bloom:
                 (recv_words,), local_db = carry_in
-                bloom_words = recv_words.amax(dim=0)  # OR-reduce over sources
+                # OR-reduce over sources into the packed bitset, once per shard
+                bloom_packed = bloom_ops.pack(recv_words)
             else:
-                local_db, bloom_words = carry_in, None
+                local_db, bloom_packed = carry_in, None
             msgs_list, valid_list, dest_list = [], [], []
             conf_by_sj, rep_by_sj = [], []
             rep_count = torch.zeros((), dtype=torch.int32, device=dev)
@@ -852,11 +853,11 @@ class _MSJKit:
                 conf_by_sj.append(conf)
                 send = conf
                 if use_bloom:
-                    # before the packing dedup, so leaders match the reference
-                    sig_col = torch.full((rel.cap,), info.sig_id, dtype=torch.int32,
-                                         device=dev)
-                    send = send & bloom_ops.probe(
-                        bloom_words, keys, sig_col, bloom_bits, fp=fp
+                    # before the packing dedup, so leaders match the reference;
+                    # the signature column is a stride-0 view, not a fill
+                    sig_col = sig_of_sj[i : i + 1].expand(rel.cap)
+                    send = send & bloom_ops.probe_packed(
+                        bloom_packed, keys, sig_col, bloom_bits, fp=fp
                     )
                 if packing:
                     is_leader, rep = _dedup(spec, fp, keys, send)
@@ -912,14 +913,14 @@ class _MSJKit:
             buf, bufvalid, ovf, _counts = shuffle.partition(msgs, valid, dest, P, cap_s)
             carry = (
                 local_db, tuple(conf_by_sj), tuple(rep_by_sj),
-                ovf, send_count, rep_count, bloom_words,
+                ovf, send_count, rep_count, bloom_packed,
             )
             return (buf, bufvalid), carry
 
         # ---------------- stage 2: probe + backward partition ----------------
         def stage_probe(sid, args):
             (recv, recv_valid), carry = args
-            local_db, confs, reps, ovf_fwd, sent_fwd, rep_fwd, _bloom_words = carry
+            local_db, confs, reps, ovf_fwd, sent_fwd, rep_fwd, _bloom_packed = carry
             flat, flat_ok = shuffle.flatten_recv(recv, recv_valid)
             if fingerprint:
                 kindtag = flat[:, 0]

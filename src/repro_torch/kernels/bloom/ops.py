@@ -2,23 +2,35 @@
 versions.
 
 ``run_msj(bloom_bits > 0)`` (DESIGN.md §7) builds a filter over each
-shard's Assert (signature, key) rows, ORs the shards' filters together and
-drops the Req messages whose (signature, key) cannot match before the
-forward exchange.
+shard's Assert (signature, key) rows, exchanges the shards' filters, ORs
+them and drops the Req messages whose (signature, key) cannot match before
+the forward exchange.
 
 * :func:`positions` — the :data:`NPROBE` bit positions of each row,
-  bit-exact with the reference.
-* :func:`build` / :func:`probe` — what ``run_msj`` calls.  On CUDA tensors
-  they launch the hand-written kernels of ``csrc/bloom.cu`` (which replace
-  the reference's Pallas kernels ``build_blocked`` and ``probe_blocked``)
-  or raise; on CPU tensors they take the plain versions
-  :func:`build_plain` and :func:`probe_plain`.  ``build.launches`` and
-  ``probe.launches`` count kernel launches.
+  bit-exact with the reference; the plain versions start from them.
+* :func:`build` — the ``(n_words, 128)`` int32 0/1 filter that shards
+  exchange.  On a CUDA tensor one entry point of ``csrc/bloom.cu`` hashes
+  each row in the kernel, sets its bits with atomics in a packed scratch
+  bitset that fits L2 and expands the bitset into the filter; on a CPU
+  tensor :func:`build_plain` scatters the positions.
+* :func:`pack` — the received ``(S, n_words, 128)`` stack OR-ed over its
+  sources into a packed bitset: ``n_words * 4`` int32 words, bit b at word
+  ``b >> 5``, bit ``b & 31`` (the ``bloom_pack`` kernel, or
+  :func:`pack_plain`).
+* :func:`probe_packed` — ``(N,) bool``, True iff both bits of the row are
+  set in a packed bitset: the kernel hashes each row and tests two bits
+  (``bloom_probe_packed``), or :func:`probe_packed_plain` gathers them.
+* :func:`probe` — the reference's contract, a probe of one ``(n_words,
+  128)`` filter: on a CUDA tensor :func:`pack` and :func:`probe_packed`, on
+  a CPU tensor :func:`probe_plain`.
 
-The filter keeps the reference's layout, since shards exchange it and the
-tests compare it array for array: ``(n_words, 128)`` int32 holding 0/1,
-bit b at ``(b // 128, b % 128)`` — one int32 per bit, 32 times the bytes of
-a packed bitset.
+``run_msj`` calls :func:`build`, :func:`pack` once per shard and
+:func:`probe_packed` once per semi-join.  The kernels replace the
+reference's Pallas kernels ``build_blocked`` and ``probe_blocked``; a CUDA
+tensor launches them or raises.  ``build.launches``, ``pack.launches`` and
+``probe_packed.launches`` count each kernel's launches (a build is one
+entry point: a memset and two kernels); ``probe.launches`` counts the
+launches the :func:`probe` wrapper made.
 """
 from __future__ import annotations
 
@@ -77,7 +89,7 @@ def positions(
 
 
 # --------------------------------------------------------------------------
-# the kernels' contract: positions in, filter (build) or bool per row (probe)
+# the plain versions: positions in, filter, packed bitset or bool per row out
 # --------------------------------------------------------------------------
 
 
@@ -97,50 +109,134 @@ def probe_plain(pos: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
     return (filt.reshape(-1)[pos.long()] > 0).all(dim=1)
 
 
+def pack_plain(words: torch.Tensor) -> torch.Tensor:
+    """Plain torch pack: bit b is set iff some source's word b is > 0 (the
+    max over the sources of a ``(S, nw, 128)`` stack, or one ``(nw, 128)``
+    filter); 32 bits per int32 word, weighed in int64 and then narrowed so
+    that bit 31 does not overflow."""
+    on = words > 0
+    if on.dim() == 3:
+        on = on.any(dim=0)
+    weights = 1 << torch.arange(32, dtype=torch.int64, device=words.device)
+    return hashing.to_i32((on.reshape(-1, 32).to(torch.int64) * weights).sum(dim=1))
+
+
+def probe_packed_plain(packed: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Plain torch probe of a packed bitset: ``(N,)`` bool, True iff all of
+    the row's bits are set (a gather of their words)."""
+    pos = pos.long()
+    return ((hashing.u32(packed)[pos >> 5] >> (pos & 31)) & 1).bool().all(dim=1)
+
+
+# --------------------------------------------------------------------------
+# the kernels
+# --------------------------------------------------------------------------
+
+_ROWS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,  # keys, strides, KW
+         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]  # sig, fp
+
+
 @functools.lru_cache(maxsize=None)
 def _launchers():
     lib = kbuild.load(SOURCE)
-    fns = lib.bloom_build_launch, lib.bloom_probe_launch
-    for fn in fns:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_void_p, ctypes.c_void_p]
+    build_, pack_, probe_ = lib.bloom_build_launch, lib.bloom_pack_launch, lib.bloom_probe_launch
+    i64, ptr = ctypes.c_int64, ctypes.c_void_p
+    build_.argtypes = _ROWS + [ptr, i64, i64, ptr, ptr, ptr]
+    pack_.argtypes = [ptr, i64, i64, i64, ptr, ptr]
+    probe_.argtypes = _ROWS + [i64, i64, ptr, ptr, ptr]
+    for fn in (build_, pack_, probe_):
         fn.restype = ctypes.c_int
-    return fns
+    return build_, pack_, probe_
 
 
-def build_cuda(pos: torch.Tensor, mask: torch.Tensor, nw: int) -> torch.Tensor:
-    """Launch the CUDA build kernel: the same filter as :func:`build_plain`."""
-    n, dev = pos.shape[0], pos.device
-    kbuild.check_inputs("bloom build", ((pos, torch.int32, (n, NPROBE)),
-                                        (mask, torch.bool, (n,))), dev)
-    flat = torch.zeros((nw * LANES,), dtype=torch.int32, device=dev)
-    if n == 0:  # a grid of 0 blocks is not a valid launch
-        return flat.view(nw, LANES)
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launch(kernel, which: int, counter, dev, *args) -> None:
+    """Call one ctypes entry point on the caller's stream; only when it
+    reports a launch, count one for ``kernel`` and for ``counter`` (the
+    wrapper that asked for it, if any)."""
     with torch.cuda.device(dev):
-        rc = _launchers()[0](pos.data_ptr(), mask.data_ptr(), n, flat.numel(),
-                             flat.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        rc = _launchers()[which](*args, _stream(dev))
     if rc != 0:
-        raise RuntimeError(f"bloom build kernel launch failed: CUDA error {rc}")
-    build.launches += 1
-    return flat.view(nw, LANES)
+        raise RuntimeError(f"bloom {kernel.__name__} kernel launch failed: CUDA error {rc}")
+    kernel.launches += 1
+    if counter is not None:
+        counter.launches += 1
 
 
-def probe_cuda(pos: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA probe kernel: the same flags as :func:`probe_plain`."""
-    n, dev = pos.shape[0], pos.device
-    kbuild.check_inputs("bloom probe", ((pos, torch.int32, (n, NPROBE)),
-                                        (filt, torch.int32)), dev)
-    if pos.data_ptr() % 8:
-        raise ValueError("bloom probe kernel reads each row's positions as one 8-byte load")
-    found = torch.empty((n,), dtype=torch.bool, device=dev)
+def _nbits(bits: int) -> int:
+    nbits = n_words(bits) * LANES
+    if nbits > 2**31:
+        raise ValueError(f"bloom filter of {nbits} bits: positions must fit int32")
+    return nbits
+
+
+def _rows(kind, keys, sigs, fp, extra=()) -> list:
+    """Check one side's columns (int32, any strides, one CUDA device) and
+    return their ctypes arguments: pointers and element strides."""
+    n, dev = sigs.shape[0], sigs.device
+    if not sigs.is_cuda:
+        raise ValueError(f"bloom {kind}: inputs must be on a cuda device, got {dev}")
+    cols = [(keys, torch.int32, (n, keys.shape[1])), (sigs, torch.int32, (n,))]
+    if fp is not None:
+        cols.append((fp, torch.int32, (n,)))
+    kbuild.check_inputs(f"bloom {kind}", cols, dev, strided=True)
+    kbuild.check_inputs(f"bloom {kind}", extra, dev)
+    return [keys.data_ptr(), keys.stride(0), keys.stride(1), keys.shape[1], sigs.data_ptr(),
+            sigs.stride(0), None if fp is None else fp.data_ptr(),
+            0 if fp is None else fp.stride(0)]
+
+
+def build_cuda(keys, sigs, mask, bits, fp=None) -> torch.Tensor:
+    """The build on the card: the same filter as
+    ``build_plain(positions(keys, sigs, bits, fp=fp), mask, n_words(bits))``
+    from one entry point — a zeroed packed bitset, the hashing build
+    kernel, the expand kernel."""
+    nw, nbits, n = n_words(bits), _nbits(bits), sigs.shape[0]
+    args = _rows("build", keys, sigs, fp, ((mask, torch.bool, (n,)),))
+    if n == 0:  # no rows, no launch
+        return torch.zeros((nw, LANES), dtype=torch.int32, device=sigs.device)
+    scratch = torch.empty((nbits // 32,), dtype=torch.int32, device=sigs.device)
+    filt = torch.empty((nw, LANES), dtype=torch.int32, device=sigs.device)
+    _launch(build, 0, None, sigs.device, *args, mask.data_ptr(), n, nbits,
+            scratch.data_ptr(), filt.data_ptr())
+    return filt
+
+
+def pack_cuda(words, counter=None) -> torch.Tensor:
+    """The pack on the card: one ``bloom_pack`` launch over a ``(S, nw,
+    128)`` stack (each source's block contiguous, the sources at any
+    stride) or one ``(nw, 128)`` filter."""
+    dev = words.device
+    stack = words if words.dim() == 3 else words[None]
+    if (not words.is_cuda or stack.dim() != 3 or stack.shape[2] != LANES
+            or stack.dtype != torch.int32 or stack.stride(2) != 1
+            or (stack.shape[1] > 1 and stack.stride(1) != LANES)):
+        raise ValueError(
+            f"bloom pack kernel input must be an int32 (S, nw, {LANES}) stack or (nw, {LANES}) "
+            f"filter on a cuda device, each filter contiguous; got {words.dtype} "
+            f"{tuple(words.shape)} strides {words.stride()} on {dev}")
+    nbits = stack.shape[1] * LANES
+    if stack.shape[0] == 0:  # no sources, no launch
+        return torch.zeros((nbits // 32,), dtype=torch.int32, device=dev)
+    packed = torch.empty((nbits // 32,), dtype=torch.int32, device=dev)
+    _launch(pack, 1, counter, dev, stack.data_ptr(), stack.shape[0], stack.stride(0), nbits,
+            packed.data_ptr())
+    return packed
+
+
+def probe_packed_cuda(packed, keys, sigs, bits, fp=None, counter=None) -> torch.Tensor:
+    """The probe on the card: one ``bloom_probe_packed`` launch, the same
+    flags as ``probe_packed_plain(packed, positions(...))``."""
+    nbits, n = _nbits(bits), sigs.shape[0]
+    args = _rows("probe", keys, sigs, fp, ((packed, torch.int32, (nbits // 32,)),))
+    found = torch.empty((n,), dtype=torch.bool, device=sigs.device)
     if n == 0:
         return found
-    with torch.cuda.device(dev):
-        rc = _launchers()[1](pos.data_ptr(), filt.data_ptr(), n, filt.numel(),
-                             found.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"bloom probe kernel launch failed: CUDA error {rc}")
-    probe.launches += 1
+    _launch(probe_packed, 2, counter, sigs.device, *args, n, nbits, packed.data_ptr(),
+            found.data_ptr())
     return found
 
 
@@ -158,13 +254,45 @@ def build(
     fp: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Build the ``(n_words, 128)`` int32 0/1 filter over the active
-    (sig, key) rows: the kernel on a CUDA tensor, the plain version on a
+    (sig, key) rows: the kernels on a CUDA tensor, the plain version on a
     CPU tensor."""
-    pos = positions(keys, sigs, bits, fp=fp)
-    return (build_cuda if pos.is_cuda else build_plain)(pos, mask.contiguous(), n_words(bits))
+    if sigs.is_cuda:
+        return build_cuda(keys, sigs, mask.contiguous(), bits, fp=fp)
+    return build_plain(positions(keys, sigs, bits, fp=fp), mask, n_words(bits))
 
 
 build.launches = 0
+
+
+def pack(words: torch.Tensor) -> torch.Tensor:
+    """The packed bitset of a ``(S, n_words, 128)`` stack of filters OR-ed
+    over S, or of one ``(n_words, 128)`` filter: ``n_words * 4`` int32
+    words, bit b at word ``b >> 5``, bit ``b & 31``.  The kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    return pack_cuda(words) if words.is_cuda else pack_plain(words)
+
+
+pack.launches = 0
+
+
+def probe_packed(
+    packed: torch.Tensor,
+    keys: torch.Tensor,
+    sigs: torch.Tensor,
+    bits: int,
+    *,
+    fp: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``(N,)`` bool — True iff all NPROBE bits of the row are set in the
+    packed bitset of :func:`pack` (maybe a match; never a false negative):
+    the kernel on a CUDA tensor, the plain version on a CPU tensor.  The
+    columns may be views at any stride, ``sigs`` a stride-0 broadcast."""
+    if sigs.is_cuda:
+        return probe_packed_cuda(packed, keys, sigs, bits, fp=fp)
+    return probe_packed_plain(packed, positions(keys, sigs, bits, fp=fp))
+
+
+probe_packed.launches = 0
 
 
 def probe(
@@ -175,11 +303,14 @@ def probe(
     *,
     fp: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """``(N,)`` bool — True iff all NPROBE bits of the row are set (maybe a
-    match; never a false negative): the kernel on a CUDA tensor, the plain
-    version on a CPU tensor."""
-    pos = positions(keys, sigs, bits, fp=fp)
-    return (probe_cuda if pos.is_cuda else probe_plain)(pos, filt)
+    """``(N,)`` bool — True iff all NPROBE bits of the row are set in the
+    ``(n_words, 128)`` filter: on a CUDA tensor :func:`pack` and
+    :func:`probe_packed` (two launches), on a CPU tensor the plain
+    version."""
+    if sigs.is_cuda:
+        return probe_packed_cuda(pack_cuda(filt, counter=probe), keys, sigs, bits, fp=fp,
+                                 counter=probe)
+    return probe_plain(positions(keys, sigs, bits, fp=fp), filt)
 
 
 probe.launches = 0

@@ -1,5 +1,5 @@
 """Card tests of the port: each hand-written CUDA kernel (the hash join
-behind the bucketed and the all-pairs probe, bloom build and bloom probe)
+behind the bucketed and the all-pairs probe; bloom build, pack and probe)
 against its plain torch version and its oracle, and MSJ runs on the card
 (default, with the bloom prefilter, with the all-pairs probe) against the
 same runs on the CPU.  They need a CUDA device and skip without one; on a
@@ -135,14 +135,14 @@ def test_hash_join_reads_strided_views(cuda, fingerprints):
 
 def _counts():
     return (ops.probe_bucketed.launches, ops.probe.launches, bloom.build.launches,
-            bloom.probe.launches)
+            bloom.pack.launches, bloom.probe_packed.launches, bloom.probe.launches)
 
 
 @pytest.mark.parametrize("probe_fn,bloom_bits,launched", [
-    (ops.probe_bucketed, 0, (8, 0, 0, 0)),      # a table build and a table probe per shard
-    # + a bloom build per shard, a bloom probe per semi-join and shard
-    (ops.probe_bucketed, 2**14, (8, 0, 4, 16)),
-    (ops.probe, 0, (0, 8, 0, 0)),
+    (ops.probe_bucketed, 0, (8, 0, 0, 0, 0, 0)),  # a table build and a table probe per shard
+    # + a bloom build and a pack per shard, a packed probe per semi-join and shard
+    (ops.probe_bucketed, 2**14, (8, 0, 4, 4, 16, 0)),
+    (ops.probe, 0, (0, 8, 0, 0, 0, 0)),
 ])
 def test_msj_on_card_equals_cpu(cuda, probe_fn, bloom_bits, launched):
     qs = queries.make_queries("A3")
@@ -176,26 +176,44 @@ def test_blocked_kernel_matches_plain_and_oracle(cuda, nb, np_, kw, key_range):
     assert ops.probe.launches == before + (2 if nb and np_ else 0)
 
 
-@pytest.mark.parametrize("bits", [128, 1000, 2**16, 2**24])
+def _bloom_rows(seed, n, kw, device, sig_range=4):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(-(2**31), 2**31, (n, kw), dtype=np.int64).astype(np.int32)
+    arrs = (keys, rng.integers(0, sig_range, n).astype(np.int32), rng.random(n) < 0.6)
+    return [torch.from_numpy(a).to(device) for a in arrs]
+
+
+def _check_bloom(keys, sigs, mask, bits, fp):
+    """The kernels against their plain versions on one case: the fused
+    build, ``probe`` and ``probe_packed`` (of the packed filter and of a
+    stack of it and an empty one) against ``positions`` and the plain
+    build and probe; no false negative."""
+    nw = bloom.n_words(bits)
+    before = _counts()
+    filt = bloom.build(keys, sigs, mask, bits, fp=fp)
+    found = bloom.probe(filt, keys, sigs, bits, fp=fp)
+    stack = torch.stack([filt, torch.zeros_like(filt)])
+    packed = bloom.pack(stack)
+    found_packed = bloom.probe_packed(packed, keys, sigs, bits, fp=fp)
+    torch.cuda.synchronize()
+    pos = bloom.positions(keys, sigs, bits, fp=fp)
+    assert torch.equal(filt, bloom.build_plain(pos, mask, nw))
+    assert torch.equal(packed, bloom.pack_plain(stack))
+    assert torch.equal(found, bloom.probe_plain(pos, filt))
+    assert torch.equal(found_packed, found)
+    assert bool(found[mask].all())
+    # build, pack (in probe and alone), probe_packed (the same), probe's own
+    n = 1 if keys.shape[0] else 0
+    assert tuple(a - b for a, b in zip(_counts(), before))[2:] == (n, 2, 2 * n, 1 + n)
+    return filt, found
+
+
+@pytest.mark.parametrize("bits", [128, 384, 1000, 2**16, 2**24])
 @pytest.mark.parametrize("n", [0, 1, 1000, 70_001])
 def test_bloom_kernels_match_plain(cuda, bits, n):
-    rng = np.random.default_rng(bits + n)
-    keys = torch.from_numpy(rng.integers(-(2**31), 2**31, (n, 1), dtype=np.int64)
-                            .astype(np.int32)).to(cuda)
-    sigs = torch.from_numpy(rng.integers(0, 4, n).astype(np.int32)).to(cuda)
-    mask = torch.from_numpy(rng.random(n) < 0.6).to(cuda)
-    nw = bloom.n_words(bits)
+    keys, sigs, mask = _bloom_rows(bits + n, n, 1, cuda)
     for fp in (None, keys[:, 0]):
-        pos = bloom.positions(keys, sigs, bits, fp=fp)
-        before = (bloom.build.launches, bloom.probe.launches)
-        filt = bloom.build_cuda(pos, mask, nw)
-        found = bloom.probe_cuda(pos, filt)
-        torch.cuda.synchronize()
-        assert torch.equal(filt, bloom.build_plain(pos, mask, nw))
-        assert torch.equal(found, bloom.probe_plain(pos, filt))
-        assert bool(found[mask].all())
-        assert (bloom.build.launches, bloom.probe.launches) == tuple(
-            b + (1 if n else 0) for b in before)
+        filt, _ = _check_bloom(keys, sigs, mask, bits, fp)
     if n <= 1000:
         want = bloom_ref.build(keys, sigs, mask, bits)
         assert np.array_equal(bloom.build(keys, sigs, mask, bits).cpu().numpy(), want)
@@ -203,18 +221,73 @@ def test_bloom_kernels_match_plain(cuda, bits, n):
                               bloom_ref.probe(filt, keys, sigs, bits))
 
 
-@pytest.mark.parametrize("case", ["inactive", "one_bit", "last_bit"])
+@pytest.mark.parametrize("case", ["inactive", "one_bit", "last_bit", "bit31"])
 def test_bloom_kernels_edge_positions(cuda, case):
-    n, bits = 5000, 2**12
-    nw = bloom.n_words(bits)
-    pos = torch.randint(0, bits, (n, 2), dtype=torch.int32, device=cuda)
-    mask = torch.ones(n, dtype=torch.bool, device=cuda)
+    """All rows inactive; every row the same (sig, key), so at most two bits;
+    rows chosen from a larger pool because a position of theirs is the
+    filter's last bit, or bit 31 of its word."""
+    bits = 2**12
+    keys, sigs, mask = _bloom_rows(5, 200_000, 2, cuda)
+    mask[:] = True
     if case == "inactive":
         mask[:] = False
     elif case == "one_bit":
-        pos[:] = 77
+        keys[:], sigs[:] = keys[0].clone(), int(sigs[0])
     else:
-        pos[::3] = bits - 1
-    filt = bloom.build_cuda(pos, mask, nw)
-    assert torch.equal(filt, bloom.build_plain(pos, mask, nw))
-    assert torch.equal(bloom.probe_cuda(pos, filt), bloom.probe_plain(pos, filt))
+        pos = bloom.positions(keys, sigs, bits)
+        hit = pos == bits - 1 if case == "last_bit" else (pos & 31) == 31
+        rows = hit.any(1) | (torch.arange(len(sigs), device=cuda) % 50 == 0)
+        keys, sigs, mask = keys[rows], sigs[rows], mask[rows]
+        assert bool(hit.any())
+    filt, found = _check_bloom(keys, sigs, mask, bits, None)
+    if case == "inactive":
+        assert not bool(filt.any())
+    elif case == "one_bit":
+        assert 1 <= int(filt.sum()) <= 2 and bool(found.all())
+    elif case == "last_bit":
+        assert int(filt.reshape(-1)[-1]) == 1
+    else:
+        assert bool((bloom.pack(filt).view(-1) < 0).any())  # bit 31 is the sign bit
+
+
+@pytest.mark.parametrize("with_fp", [False, True])
+def test_bloom_kernels_read_strided_rows(cuda, with_fp):
+    """As in ``run_msj``: KW = 2 key columns and the fingerprint as views of
+    one buffer, the signature a stride-0 broadcast; read in place, equal to
+    the same rows copied."""
+    rng = np.random.default_rng(4)
+    n, bits = 50_000, 2**16
+    flat = torch.from_numpy(rng.integers(-(2**31), 2**31, (n, 4), dtype=np.int64)
+                            .astype(np.int32)).to(cuda)
+    keys, fp = flat[:, 1:3], (flat[:, 3] if with_fp else None)
+    sigs = torch.full((1,), 2, dtype=torch.int32, device=cuda).expand(n)
+    mask = torch.from_numpy(rng.random(n) < 0.5).to(cuda)
+    assert keys.stride() == (4, 1) and sigs.stride() == (0,)
+    _check_bloom(keys, sigs, mask, bits, fp)
+    copies = [keys.contiguous(), sigs.contiguous(), mask]
+    fpc = None if fp is None else fp.contiguous()
+    filt = bloom.build(*copies, bits, fp=fpc)
+    assert torch.equal(filt, bloom.build(keys, sigs, mask, bits, fp=fp))
+    packed = bloom.pack(filt)
+    assert torch.equal(bloom.probe_packed(packed, keys, sigs, bits, fp=fp),
+                       bloom.probe_packed(packed, copies[0], copies[1], bits, fp=fpc))
+
+
+@pytest.mark.parametrize("n_src", [1, 16])
+def test_bloom_pack_reads_a_strided_stack(cuda, n_src):
+    """The received stack is a view: ``pack`` reads each source's filter at
+    the source axis's stride, and equals its plain version (the max over
+    the sources, then the bit pack) on 0/1 filters with bit 31 and the
+    last bit set."""
+    nw = bloom.n_words(2**20)
+    buf = (torch.rand((n_src, 2, nw, bloom.LANES), device=cuda) < 0.05).to(torch.int32)
+    buf[0, 1].view(-1)[31] = 1
+    buf[-1, 1].view(-1)[-1] = 1
+    stack = buf[:, 1]
+    assert stack.stride(0) == 2 * nw * bloom.LANES
+    got = bloom.pack(stack)
+    want = bloom.pack_plain(stack)
+    assert torch.equal(got, want)
+    assert int(want[0]) < 0 and int(want[-1]) < 0
+    if n_src == 1:
+        assert torch.equal(bloom.pack(stack[0]), want)

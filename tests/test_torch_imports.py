@@ -32,7 +32,8 @@ def test_every_module_imports_without_jax_or_repro():
         "import repro_torch.kernels.msj_probe.ops as ops\n"
         "import repro_torch.kernels.bloom.ops as bloom\n"
         "assert ops.probe_bucketed.launches == ops.probe.launches == 0\n"
-        "assert bloom.build.launches == bloom.probe.launches == 0\n"
+        "assert bloom.build.launches == bloom.pack.launches == 0\n"
+        "assert bloom.probe_packed.launches == bloom.probe.launches == 0\n"
         "print('ok')\n"
     )
     out = subprocess.run(
