@@ -53,7 +53,29 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    torch sort-merge probe (``msj.probe_sorted``), which shares no code
    with the hash join.
    (Cut to 2**20: its plain version is O(rows**2) per shard.)
-7. ``oracle``  — the quickstart query on the card under PAR / GREEDY /
+7. ``service`` — the SGF query service (``repro_torch.service``) on a
+   catalog resident on the card: the four tenants of the reference's
+   service bench (guards R, G, H of arity 4, unary S, T, U, V) at
+   2**21 rows per relation (at most 2**(log2-rows - 3)), P=16.  Ticks, one line
+   each, every kernel counter set to 0 just before and read just after:
+   ``baseline`` (each tenant through its own ``Executor`` and GREEDY plan,
+   after a warm-up), ``cold`` (all four fused in one ``tick()``, equal as
+   sets to the baseline; ``cold_sorted`` repeats it on a fresh service
+   with the torch sort-merge probe, which must give bit-identical outputs
+   and equal per-job counters; ``cold_traced`` repeats it with a
+   synchronizing tracer for its phase seconds), ``warm`` (0 jobs,
+   0 bytes, bit-identical), ``unrelated_register`` (still warm),
+   ``dependent_register`` (``S`` re-registered: every query runs again
+   with the semi-joins not on ``S`` served from the cache), ``sanitized``
+   (the happens-before sanitizer on, traced and metered, its report
+   exported to ``chiprun_out/service_tick.trace.json``, which must
+   validate, audit clean and replay bit-exactly), ``chaos`` (shard 3 of R
+   lost on the first job that reads R and one injected fault: recovered
+   bit-identically from the catalog, whose R stays intact) and ``bloom``
+   (``bloom_bits`` = one bit per row).  Every cold tick's MSJ jobs must
+   run the probe kernel.  Then one tick at 2**12 rows set-equal to
+   ``ref_engine`` (its line times the tick and the oracle apart).
+8. ``oracle``  — the quickstart query on the card under PAR / GREEDY /
    1-ROUND, and 1-ROUND with the bloom prefilter, set-equal to the
    set-semantics oracle ``ref_engine``.
 
@@ -78,6 +100,7 @@ DEVICE = "cuda"
 SHARDS = 16  # P of the main path
 REPS = 20  # timed launches per measured kernel
 BLOCKED_LOG2_ROWS = 20  # rows per relation of the all-pairs probe's run
+SERVICE_LOG2_ROWS = 21  # rows per relation of the service's catalog
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 
@@ -410,13 +433,29 @@ def msj_stat(report, key) -> list:
     return [r.stats.get(key) for r in report.records if isinstance(r.job, MSJJob)]
 
 
+def check_path_kernels(name, report, launches, bloom) -> list:
+    """Every MSJ job of ``report`` ran the probe kernel, every kernel of the
+    path (the bloom kernels too with ``bloom``) launched, and the probe
+    wrapper's count is its two kernels'.  Returns the MSJ jobs' backends."""
+    from repro_torch.core.planner import MSJJob
+
+    backends = [r.backend for r in report.records if isinstance(r.job, MSJJob)]
+    if not backends or any(b != "kernel" for b in backends):
+        raise AssertionError(f"{name}: MSJ jobs ran {backends}, not the kernel")
+    idle = [k for k in ("probe_bucketed", "table_build", "table_probe")
+            + (("bloom_build", "bloom_pack", "bloom_probe") if bloom else ())
+            if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"{name}: kernels of the path never launched: {idle}")
+    check_probe_launches(name, launches, "probe_bucketed")
+    return backends
+
+
 def phase_e2e(name, db, plan, P, rows, bloom_bits=0) -> dict:
     import torch
 
-    from repro_torch.core.planner import MSJJob, job_writes
+    from repro_torch.core.planner import job_writes
 
-    path_kernels = ["probe_bucketed", "table_build", "table_probe"] + (
-        ["bloom_build", "bloom_pack", "bloom_probe"] if bloom_bits else [])
     outputs = sorted(set().union(*(job_writes(j) for r in plan.rounds for j in r.jobs)))
     run_plan(db, plan, P, "auto", bloom_bits=bloom_bits)  # warm
     torch.cuda.reset_peak_memory_stats()
@@ -424,13 +463,7 @@ def phase_e2e(name, db, plan, P, rows, bloom_bits=0) -> dict:
     env_a, rep_a, wall_a = run_plan(db, plan, P, "auto", bloom_bits=bloom_bits)
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    msj_backends = [r.backend for r in rep_a.records if isinstance(r.job, MSJJob)]
-    if not msj_backends or any(b != "kernel" for b in msj_backends):
-        raise AssertionError(f"{name}: auto resolved to {msj_backends}, not the kernel")
-    idle = [k for k in path_kernels if launches[k] <= 0]
-    if idle:
-        raise AssertionError(f"{name}: kernels of the path never launched: {idle}")
-    check_probe_launches(name, launches, "probe_bucketed")
+    msj_backends = check_path_kernels(name, rep_a, launches, bool(bloom_bits))
     # the sorted reference path: compare the measured auto run's outputs
     # first, then free them before the sorted runs
     run_plan(db, plan, P, "sorted", bloom_bits=bloom_bits)  # warm
@@ -943,6 +976,340 @@ def phase_oracle() -> None:
 
 
 # --------------------------------------------------------------------------
+# phase 7: the SGF query service
+# --------------------------------------------------------------------------
+
+def sorted_rows(rel):
+    """The valid rows of a relation in lexicographic order, on the card."""
+    import torch
+
+    rows = rel.data.reshape(-1, rel.arity)[rel.valid.reshape(-1)]
+    for c in reversed(range(rows.shape[1])):
+        rows = rows[torch.argsort(rows[:, c], stable=True)]
+    return rows
+
+
+def same_set(a, b) -> bool:
+    import torch
+
+    return torch.equal(sorted_rows(a), sorted_rows(b))
+
+
+def same_arrays(a, b) -> bool:
+    import torch
+
+    return torch.equal(a.data, b.data) and torch.equal(a.valid, b.valid)
+
+
+def outputs_of(reqs) -> list:
+    return [r.outputs["Z0"] for r in reqs]
+
+
+def tick(svc, tenants, label, *, want=None, bit_identical=None, bloom=False, warm=False,
+         extra=None):
+    """Submit every tenant's query, run one ``tick()`` on the card with the
+    launch counters set to 0 just before it, check it and print its line.
+    ``want``: outputs the tick must equal as sets; ``bit_identical``:
+    outputs it must equal in ``data`` and ``valid``; ``warm``: the tick
+    must run 0 jobs, shuffle 0 bytes and launch nothing, else every MSJ job
+    must run the probe kernel (and, with ``bloom``, the bloom kernels)."""
+    import torch
+
+    from repro_torch.core.planner import MSJJob
+
+    reqs = [svc.submit(qs, tenant=t) for t, qs in enumerate(tenants)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    done = svc.tick()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if done != reqs:
+        raise AssertionError(f"service {label}: {len(done)} of {len(reqs)} requests completed")
+    rep = svc.last_report
+    msj = [r for r in rep.records if isinstance(r.job, MSJJob)]
+    if warm:
+        if rep.n_jobs or rep.bytes_shuffled() or any(launches.values()):
+            raise AssertionError(f"service {label}: a warm tick ran {rep.n_jobs} jobs, "
+                                 f"{rep.bytes_shuffled()} bytes, launches {launches}")
+    else:
+        check_path_kernels(f"service {label}", rep, launches, bloom)
+    outs = outputs_of(reqs)
+    if want is not None and not all(same_set(a, b) for a, b in zip(outs, want)):
+        raise AssertionError(f"service {label}: outputs differ from the expected sets")
+    if bit_identical is not None and not all(
+            same_arrays(a, b) for a, b in zip(outs, bit_identical)):
+        raise AssertionError(f"service {label}: outputs are not bit-identical")
+    c = svc.counters()
+    line = {
+        "phase": "service", "tick": label, "wall_s": wall, "jobs": rep.n_jobs,
+        "msj_jobs": len(msj), "bytes_shuffled": rep.bytes_shuffled(),
+        "peak_mem_bytes": peak, "launches": launches,
+        "warm_queries": svc.last_tick.get("warm_queries", 0),
+        "cold_queries": svc.last_tick.get("cold_queries", 0),
+        "x_injected": svc.last_tick.get("x_injected", 0),
+        "plan_cache": {k: c[k] for k in ("hits", "misses", "collisions", "size")},
+        "result_cache": {k: c[k] for k in ("query_hits", "query_misses", "x_hits", "x_misses",
+                                           "stale_evicted", "partial_skipped", "result_size")},
+        "output_rows": [int(o.count()) for o in outs],
+        **(extra or {}),
+    }
+    emit(line)
+    return reqs, line
+
+
+def run_baseline(catalog, tenants, P):
+    """The tenants one after another, each through its own ``Executor`` and
+    ``plan_greedy`` (after one warm-up pass): ``(outputs, line)``."""
+    import torch
+
+    from repro_torch.core.costmodel import HADOOP
+    from repro_torch.core.executor import Executor, ExecutorConfig
+    from repro_torch.core.planner import MSJJob, plan_greedy
+    from repro_torch.engine.comm import SimComm
+
+    def run_all():
+        outs, jobs, msj, nbytes = [], 0, 0, 0
+        for qs in tenants:
+            stats = catalog.stats()
+            plan = plan_greedy(qs, stats, HADOOP)
+            ex = Executor(catalog.db(), SimComm(P), ExecutorConfig(), stats=stats)
+            env, rep = ex.execute(plan)
+            outs.append(env["Z0"])
+            jobs += rep.n_jobs
+            msj += sum(isinstance(r.job, MSJJob) for r in rep.records)
+            nbytes += rep.bytes_shuffled()
+        return outs, jobs, msj, nbytes
+
+    run_all()  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs, jobs, msj, nbytes = run_all()
+    torch.cuda.synchronize()
+    line = {"phase": "service", "tick": "baseline", "wall_s": time.perf_counter() - t0,
+            "jobs": jobs, "msj_jobs": msj, "bytes_shuffled": nbytes,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": read_counts(),
+            "output_rows": [int(o.count()) for o in outs]}
+    emit(line)
+    return outs, line
+
+
+def service_oracle(P) -> None:
+    """One tick at 2**12 rows on the card, set-equal to ``ref_engine``;
+    its line gives the seconds of the tick and of the oracle apart."""
+    import torch
+
+    from repro_torch.core import queries, ref_engine
+    from repro_torch.service import SGFService, catalog_from_numpy
+
+    t_start = time.perf_counter()
+    tenants = [queries.tenant_queries(t) for t in range(4)]
+    db_np = queries.gen_db([q for qs in tenants for q in qs], n_guard=2**12, n_cond=2**12,
+                           sel=0.5, seed=7)
+    svc = SGFService(catalog_from_numpy(db_np, P=P))
+    if svc.catalog.get("R").data.device.type != DEVICE:
+        raise AssertionError("service oracle: the catalog is not on the card")
+    reqs = [svc.submit(qs, tenant=t) for t, qs in enumerate(tenants)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc.tick()
+    torch.cuda.synchronize()
+    tick_s = time.perf_counter() - t0
+    got = [req.outputs["Z0"].to_set() for req in reqs]
+    t0 = time.perf_counter()
+    setdb = {k: {tuple(map(int, r)) for r in v} for k, v in db_np.items()}
+    want = [ref_engine.eval_bsgf(setdb, qs[0]) for qs in tenants]
+    oracle_s = time.perf_counter() - t0
+    for req, g, w in zip(reqs, got, want):
+        if g != w:
+            raise AssertionError(f"service oracle: tenant {req.tenant} disagrees with ref_engine")
+    emit({"phase": "service", "tick": "oracle", "rows_per_relation": 2**12, "P": P,
+          "output_rows": [len(g) for g in got], "set_equal": True, "tick_s": tick_s,
+          "ref_engine_s": oracle_s, "seconds": time.perf_counter() - t_start})
+
+
+def phase_service(log2_rows, P, seed) -> list:
+    """The service path on the card: a catalog of ``2**log2_rows`` rows per
+    relation on ``P`` shards, the four tenants of the reference's service
+    bench, and the ticks of the module docstring.  Returns every line that
+    counted kernel launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import queries
+    from repro_torch.core.executor import ExecutorConfig, ShardLoss
+    from repro_torch.core.planner import MSJJob, job_reads
+    from repro_torch.ft.elastic import lose_shard
+    from repro_torch.ft.supervisor import SimulatedFault
+    from repro_torch.obs import (
+        MetricRegistry,
+        Tracer,
+        audit_trace,
+        report_from_trace,
+        validate_trace,
+        write_trace,
+    )
+    from repro_torch.service import SGFService, catalog_from_numpy
+
+    rows = 2**log2_rows
+    tenants = [queries.tenant_queries(t) for t in range(4)]
+    t_phase = t0 = time.perf_counter()
+    db_np = queries.gen_db([q for qs in tenants for q in qs], n_guard=rows, n_cond=rows,
+                           sel=0.5, seed=seed)
+    catalog = catalog_from_numpy(db_np, P=P)
+    torch.cuda.synchronize()
+    emit({"phase": "service", "tick": "catalog", "rows_per_relation": rows, "P": P,
+          "relations": {n: list(catalog.get(n).data.shape) for n in catalog.names()},
+          "device": str(catalog.device), "seconds": time.perf_counter() - t0,
+          "resident_bytes": sum(catalog.get(n).data.nbytes + catalog.get(n).valid.nbytes
+                                for n in catalog.names())})
+    if catalog.get("R").data.device.type != DEVICE:
+        raise AssertionError("service: the catalog is not on the card")
+    lines = []
+
+    base_out, line = run_baseline(catalog, tenants, P)
+    lines.append(line)
+
+    svc = SGFService(catalog)
+    cold, line = tick(svc, tenants, "cold", want=base_out)
+    cold_out = outputs_of(cold)
+    cold_stats = [r.stats for r in svc.last_report.records]
+    lines.append(line)
+    # the probe kernels at the fused tick's shapes, held against the torch
+    # sort-merge probe: the same tick on a fresh service, bit-identical
+    # outputs and equal per-job counters (the baseline runs the kernel too)
+    plain = SGFService(catalog, config=ExecutorConfig(probe_backend="sorted"))
+    reqs = [plain.submit(qs, tenant=t) for t, qs in enumerate(tenants)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain.tick()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    backends = [r.backend for r in plain.last_report.records if isinstance(r.job, MSJJob)]
+    if not backends or any(b != "sorted" for b in backends):
+        raise AssertionError(f"service cold_sorted: MSJ jobs ran {backends}, not sorted")
+    if not all(same_arrays(a, b) for a, b in zip(outputs_of(reqs), cold_out)):
+        raise AssertionError("service: the kernel and sort-merge cold ticks differ")
+    if [r.stats for r in plain.last_report.records] != cold_stats:
+        raise AssertionError("service: the kernel and sort-merge cold ticks' counters differ")
+    emit({"phase": "service", "tick": "cold_sorted", "wall_s": wall, "msj_backends": backends,
+          "bit_identical": True, "stats_equal": True})
+    del plain, reqs
+    # the cold tick's phases: the same tick once more on a fresh service,
+    # with a tracer that synchronizes after each stage
+    traced = SGFService(catalog, tracer=Tracer(trace_sync=True))
+    reqs = [traced.submit(qs, tenant=t) for t, qs in enumerate(tenants)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traced.tick()
+    torch.cuda.synchronize()
+    emit({"phase": "service", "tick": "cold_traced", "traced_wall_s": time.perf_counter() - t0,
+          "phase_s": phase_seconds(traced.last_report)})
+    if not all(same_arrays(a, b) for a, b in zip(outputs_of(reqs), cold_out)):
+        raise AssertionError("service: the traced cold tick is not bit-identical")
+    del traced, reqs
+
+    _, line = tick(svc, tenants, "warm", bit_identical=cold_out, warm=True)
+    lines.append(line)
+    catalog.register("BYSTANDER", np.arange(64, dtype=np.int32).reshape(16, 4))
+    _, line = tick(svc, tenants, "unrelated_register", bit_identical=cold_out, warm=True)
+    lines.append(line)
+    catalog.register("S", db_np["S"])
+    _, line = tick(svc, tenants, "dependent_register", want=cold_out)
+    if line["warm_queries"] != 0 or line["cold_queries"] != len(tenants) or not line["x_injected"]:
+        raise AssertionError(f"service dependent_register: {line['warm_queries']} warm, "
+                             f"{line['cold_queries']} cold queries, {line['x_injected']} "
+                             "warm semi-join materializations")
+    lines.append(line)
+    del svc
+
+    # sanitized, traced and metered; its report exported to Perfetto
+    seen = []
+    metrics = MetricRegistry()
+    svc = SGFService(catalog, config=ExecutorConfig(sanitize=True), tracer=Tracer(),
+                     metrics=metrics)
+
+    def keep_executor(job, attempt):  # the tick's Executor holds last_sanitize
+        if not seen:
+            seen.append(svc._executor)
+
+    svc.on_job = keep_executor
+    _, line = tick(svc, tenants, "sanitized", bit_identical=cold_out)
+    if seen[0].last_sanitize != []:
+        raise AssertionError(f"service sanitized: findings {seen[0].last_sanitize}")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    path = write_trace(str(out_dir / "service_tick.trace.json"), svc.last_report,
+                       metrics=metrics, title="service cold tick")
+    doc = json.loads(Path(path).read_text())
+    problems, findings = validate_trace(doc), audit_trace(doc)
+    rep, rep2 = svc.last_report, report_from_trace(doc)
+    replay = (rep2.total_time == rep.total_time and rep2.net_time == rep.net_time
+              and all(rep2.net_time_by_events(w) == rep.net_time_by_events(w)
+                      for w in (None, 1, 2)))
+    if problems or findings or not replay:
+        raise AssertionError(f"service trace: schema {problems}, audit {findings}, "
+                             f"replay bit-exact {replay}")
+    emit({"phase": "service", "tick": "sanitized_trace", "last_sanitize": [],
+          "trace": str(Path(path).relative_to(ROOT)), "trace_events": len(doc["traceEvents"]),
+          "validate_trace": problems, "audit_findings": len(findings), "replay_bit_exact": replay,
+          "metrics": {k: v for k, v in metrics.snapshot().items() if not isinstance(v, dict)}})
+    lines.append(line)
+    del svc
+
+    # chaos: shard 3 of R lost on the first attempt of the first job that
+    # reads R, one injected fault on the first attempt of the next job
+    r_before = (catalog.get("R").data.clone(), catalog.get("R").valid.clone())
+    seen, events = [], []
+    svc = SGFService(catalog)
+    svc.max_restarts = 2
+
+    def chaos(job, attempt):
+        ex = svc._executor
+        if not seen:
+            seen.append(ex)
+        if attempt == 1 and "R" in job_reads(job) and "shard_loss" not in events:
+            events.append("shard_loss")
+            ex.env["R"] = lose_shard(ex.env["R"], 3)
+            raise ShardLoss("R", 3)
+        if attempt == 1 and events == ["shard_loss"]:
+            events.append("simulated_fault")
+            raise SimulatedFault(f"injected fault on {job}")
+
+    svc.on_job = chaos
+    _, line = tick(svc, tenants, "chaos", bit_identical=cold_out)
+    ft = dict(seen[0].ft_counters)
+    r_intact = (torch.equal(catalog.get("R").data, r_before[0])
+                and torch.equal(catalog.get("R").valid, r_before[1]))
+    r_restored = same_arrays(seen[0].env["R"], catalog.get("R"))
+    if (events != ["shard_loss", "simulated_fault"] or ft["shard_recoveries"] != 1
+            or ft["fault_retries"] != 2 or not r_intact or not r_restored):
+        raise AssertionError(f"service chaos: events {events}, ft_counters {ft}, catalog R "
+                             f"intact {r_intact}, live R restored {r_restored}")
+    emit({"phase": "service", "tick": "chaos_ft", "events": events, "ft_counters": ft,
+          "catalog_R_intact": r_intact, "live_R_restored": r_restored})
+    lines.append(line)
+    del svc, seen, r_before
+
+    svc = SGFService(catalog, config=ExecutorConfig(bloom_bits=rows))
+    cold_bytes = lines[1]["bytes_shuffled"]
+    _, line = tick(svc, tenants, "bloom", want=cold_out, bloom=True,
+                   extra={"bloom_bits": rows, "bytes_shuffled_cold": cold_bytes})
+    lines.append(line)
+    del svc, catalog, cold_out, base_out
+    torch.cuda.empty_cache()
+
+    service_oracle(P)
+    emit({"phase": "service", "tick": "done", "seconds": time.perf_counter() - t_phase})
+    return lines
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1030,6 +1397,12 @@ def main() -> int:
     e2e.append(blocked)
     del bdb
     torch.cuda.empty_cache()
+
+    # the service's fused tick has one EVAL job over 4 units x 5 inputs,
+    # each unit's output P x its forward capacity rows per shard: at 2**21
+    # rows the cold tick peaks near 66 GB (2**22 would need about 130 GB)
+    service = phase_service(min(SERVICE_LOG2_ROWS, args.log2_rows - 3), P, args.seed)
+    e2e.extend({**line, "probe_wrapper": "probe_bucketed"} for line in service)
 
     phase_oracle()
 

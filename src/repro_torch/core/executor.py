@@ -124,7 +124,7 @@ class ShardLoss(TransientFault):
     """One shard of a base relation was lost mid-execute (a failed worker
     holding that partition).  Retryable *after recovery*: the executor
     re-materializes the lost partition from its lineage sources (the
-    catalog's host-resident rows, via ``ft/elastic.recover_shard``) before
+    catalog's resident rows, via ``ft/elastic.recover_shard``) before
     re-dispatching the job.  Injectors must damage ``executor.env`` (see
     ``ft/elastic.lose_shard``) before raising, so the recovery path is
     actually exercised."""
@@ -529,9 +529,14 @@ class ExecutorConfig:
     #: jobs run unsplit; async mode only (the split rides the same
     #: sub-node machinery as ``overlap``).
     skew_defense: bool = False
-    #: happens-before schedule sanitizer (DESIGN.md §15).  The port has
-    #: no analysis layer yet: True is validated like the reference's flag
-    #: and raises NotImplementedError when a plan is executed.
+    #: happens-before schedule sanitizer (repro_torch.analysis.sanitizer,
+    #: DESIGN.md §15): clock every JobRecord the async walk emits —
+    #: speculative attempts, failed/tainted records, narrow_job
+    #: remainders included — and raise SanitizerError on any conflicting
+    #: pair the DAG left unordered or any timeline-shape violation.
+    #: Outputs are untouched (the sanitizer only observes); zero overhead
+    #: when False.  Async mode only — only the ready-queue walk has the
+    #: per-record event timeline the clocks are built from.
     sanitize: bool = False
 
     def __post_init__(self):
@@ -679,12 +684,15 @@ class Executor:
         self.metrics = metrics
         #: durable lineage sources for shard-loss recovery: relation name →
         #: the authoritative Relation a lost partition is re-materialized
-        #: from (the catalog's host-resident rows in the service).  Default
+        #: from (the catalog's resident rows in the service).  Default
         #: is the initial ``db`` mapping — base relations are recoverable,
         #: in-flight intermediates are not (their producers would have to
         #: re-run; under fail_policy="isolate" that surfaces as a failed
         #: job instead of an abort).
         self.lineage: dict[str, Relation] = dict(db) if lineage is None else dict(lineage)
+        #: findings of the last sanitized async walk (config.sanitize);
+        #: populated just before SanitizerError is raised, [] on a clean run
+        self.last_sanitize: list = []
         #: dispatch log of the last :meth:`execute` call.
         self.schedule: list[ScheduledJob] = []
         #: fault-tolerance counters of the last :meth:`execute` call
@@ -949,11 +957,12 @@ class Executor:
 
     def _recover_shard(self, fault: ShardLoss) -> None:
         """Re-materialize a lost base-relation partition from lineage
-        (DESIGN.md §13).  Without a lineage source the loss is
-        unrecoverable and escalates to a :class:`PermanentFault`; with one,
-        the splice needs the reference's ``ft/elastic.recover_shard``,
-        which the port does not have yet, so it raises
-        ``NotImplementedError``."""
+        (DESIGN.md §13): the durable source rows are resident in the
+        catalog, so the damaged in-memory copy is spliced back
+        bit-identically (``ft/elastic.recover_shard``, which builds new
+        tensors and never writes the source; a source resident at a
+        different P is re-partitioned first).  Without a lineage source the
+        loss is unrecoverable and escalates to a :class:`PermanentFault`."""
         src = self.lineage.get(fault.rel)
         if src is None:
             raise PermanentFault(
@@ -961,10 +970,12 @@ class Executor:
                 "source (in-flight intermediate); cannot re-materialize",
                 rels={fault.rel},
             ) from fault
-        raise NotImplementedError(
-            "shard-loss recovery from lineage needs ft/elastic, which the "
-            "port does not have yet (ROADMAP.md Queue 1 item 8)"
-        ) from fault
+        from repro_torch.ft.elastic import recover_shard
+
+        self.env[fault.rel] = recover_shard(
+            self.env[fault.rel], src, fault.shard
+        )
+        self.ft_counters["shard_recoveries"] += 1
 
     def _taint_sweep(
         self,
@@ -973,6 +984,7 @@ class Executor:
         end: float,
         report: "Report",
         end_at: dict[int, float],
+        san=None,
     ) -> None:
         """Propagate a failure's taint through the not-yet-dispatched jobs
         (DESIGN.md §13): any pending job reading a tainted relation is
@@ -997,9 +1009,13 @@ class Executor:
                 taint_rec = JobRecord(dropped, tn.round_idx, 0.0, {}, 0,
                                       "none", end, end, -1, outcome="tainted")
                 report.records.append(taint_rec)
+                if san is not None:
+                    san.observe(taint_rec, ti, tn.deps)
                 if kept is None:
                     end_at[ti] = end
                     del pending[ti]
+                    if san is not None:
+                        san.complete(ti, end)
                 else:
                     pending[ti] = replace(
                         tn, job=kept, reads=job_reads(kept),
@@ -1200,12 +1216,14 @@ class Executor:
         identities are unaffected by duplicate attempts).
         """
         report = Report()
+        san = None
+        self.last_sanitize = []
         if self.config.sanitize:
-            raise NotImplementedError(
-                "sanitize=True needs the happens-before schedule sanitizer "
-                "(analysis/), which the port does not have yet (ROADMAP.md "
-                "Queue 1 item 8)"
-            )
+            # lazy import: the analysis layer sits above core and is only
+            # paid for when the sanitizer is actually on
+            from repro_torch.analysis.sanitizer import ScheduleSanitizer
+
+            san = ScheduleSanitizer(nodes)
         n_slots = len(nodes) if slots is None else max(1, min(slots, len(nodes)))
         slot_free = [0.0] * max(n_slots, 1)
         end_at: dict[int, float] = {}
@@ -1332,6 +1350,8 @@ class Executor:
                 rec = JobRecord(dropped, node.round_idx, wall, {}, attempts,
                                 "none", start, end, s, outcome="failed")
                 report.records.append(rec)
+                if san is not None:
+                    san.observe(rec, node.idx, node.deps)
                 self.schedule.append(
                     ScheduledJob(node.idx, node.round_idx, s, start, end,
                                  est[node.idx], 0)
@@ -1343,6 +1363,8 @@ class Executor:
                 if kept is None:
                     end_at[node.idx] = end
                     del pending[node.idx]
+                    if san is not None:
+                        san.complete(node.idx, end)
                     if isinstance(node.job, ComputeJob):
                         # the buffer is dead either way: release its pool
                         # slot (end_at above) and drop the exchange state
@@ -1367,7 +1389,7 @@ class Executor:
                     n0 = len(report.records)
                     self._taint_sweep(
                         pending, job_writes(dropped) | blamed, end, report,
-                        end_at,
+                        end_at, san,
                     )
                     rec.spans.append(Span(
                         "ft.taint.sweep", "phase", wall,
@@ -1377,7 +1399,7 @@ class Executor:
                 else:
                     self._taint_sweep(
                         pending, job_writes(dropped) | blamed, end, report,
-                        end_at,
+                        end_at, san,
                     )
                 maybe_shrink(recov0)
                 continue
@@ -1452,6 +1474,8 @@ class Executor:
                 ratios.append(win_wall / est[node.idx])
             for r in recs:
                 report.records.append(r)
+                if san is not None:
+                    san.observe(r, node.idx, node.deps)
                 self.schedule.append(
                     ScheduledJob(node.idx, node.round_idx, r.slot, r.start,
                                  r.end, est[node.idx], r.attempt)
@@ -1462,6 +1486,8 @@ class Executor:
                 slot_free[s] = rec.end
             end_at[node.idx] = win_end
             del pending[node.idx]
+            if san is not None:
+                san.complete(node.idx, win_end)
             if overlapped:
                 if isinstance(node.job, TransferJob):
                     if node.job.buffer:
@@ -1475,6 +1501,12 @@ class Executor:
                 elif isinstance(node.job, ComputeJob):
                     self.env.pop(node.job.buffer, None)
             maybe_shrink(recov0)
+        if san is not None:
+            from repro_torch.analysis.sanitizer import SanitizerError
+
+            self.last_sanitize = san.finish()
+            if self.last_sanitize:
+                raise SanitizerError(self.last_sanitize)
         return self.env, report
 
     def _execute_waves(

@@ -8,6 +8,7 @@ synthetic data generators with controllable selectivity.
   level with overlapping atoms, C3 a deep chain with many distinct atoms,
   C4 two levels with many overlapping atoms).
 * the cost-model ablation query of §5.2 (non-proportional map output).
+* the multi-tenant mix of the reference's service throughput bench.
 
 Note: the paper's Table 2 prints B2's third disjunct as
 ``(S ∧ ¬T ∧ U ∧ ¬V)``, which contradicts the stated "precisely one"
@@ -155,6 +156,21 @@ def example5_sgf() -> SGF:
     q4 = BSGF("Q4", ("x", "y"), Atom("R2", "x", "y"), Atom("T", "x"))
     q5 = BSGF("Q5", ("x",), Atom("Q3", "x"), Atom("Q4", "x", "y"))
     return SGF([q1, q2, q3, q4, q5])
+
+
+def tenant_queries(t: int, per_tenant: int = 1) -> list[BSGF]:
+    """Mixed A-family queries for tenant ``t`` over shared base relations:
+    the tenants of the reference's service throughput bench
+    (``benchmarks/service_throughput.py:tenant_queries``)."""
+    out = []
+    for j in range(per_tenant):
+        guard = ("R", "G", "H")[(t + j) % 3]
+        if (t + j) % 2 == 0:
+            conds = [Atom(r, v) for r, v in zip("STUV", XYZW)]  # A1/A5 style
+        else:
+            conds = [Atom(r, "x") for r in "STUV"]  # A3 style (key sharing)
+        out.append(BSGF(f"Z{j}", XYZW, Atom(guard, *XYZW), all_of(*conds)))
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -291,3 +291,82 @@ def test_bloom_pack_reads_a_strided_stack(cuda, n_src):
     assert int(want[0]) < 0 and int(want[-1]) < 0
     if n_src == 1:
         assert torch.equal(bloom.pack(stack[0]), want)
+
+
+# --------------------------------------------------------------------------
+# the service and shard-loss recovery on the card
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bloom_bits", [0, 4096])
+def test_service_tick_on_card_equals_cpu(cuda, bloom_bits):
+    from repro_torch.core.executor import ExecutorConfig
+    from repro_torch.service import SGFService, catalog_from_numpy
+
+    tenants = [queries.tenant_queries(t) for t in range(4)]
+    db_np = queries.gen_db([q for qs in tenants for q in qs], n_guard=2048, n_cond=2048)
+    outs, reports = {}, {}
+    for dev in ("cpu", cuda):
+        svc = SGFService(catalog_from_numpy(db_np, P=4, device=dev),
+                         config=ExecutorConfig(bloom_bits=bloom_bits))
+        reqs = [svc.submit(qs, tenant=t) for t, qs in enumerate(tenants)]
+        svc.tick()
+        assert all(r.done for r in reqs)
+        outs[str(dev)] = [r.outputs["Z0"] for r in reqs]
+        reports[str(dev)] = svc.last_report
+        # the warm tick serves the same tensors and runs nothing
+        again = [svc.submit(qs, tenant=t) for t, qs in enumerate(tenants)]
+        svc.tick()
+        assert svc.last_report.n_jobs == 0
+        for a, b in zip(again, reqs):
+            assert torch.equal(a.outputs["Z0"].data, b.outputs["Z0"].data)
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        assert b.data.is_cuda
+        assert torch.equal(a.data, b.data.cpu()) and torch.equal(a.valid, b.valid.cpu())
+    assert reports["cpu"].bytes_shuffled() == reports["cuda"].bytes_shuffled()
+    assert [r.stats for r in reports["cpu"].records] == \
+        [r.stats for r in reports["cuda"].records]
+    assert any(r.backend == "kernel" for r in reports["cuda"].records)
+
+
+def test_catalog_compares_resolved_devices(cuda):
+    from repro_torch.core.relation import Relation
+    from repro_torch.service import Catalog
+
+    cat = Catalog(P=2)  # the card by default
+    index = torch.cuda.current_device()
+    assert cat.device == torch.device("cuda", index)
+    rows = np.arange(8, dtype=np.int32).reshape(4, 2)
+    assert cat.register("R", rows).data.device == cat.device
+    rel = Relation.from_numpy("S", rows, P=2, device=f"cuda:{index}")
+    assert cat.register("S", rel).data is rel.data
+    with pytest.raises(ValueError, match=f"'C' lies on cpu, catalog on cuda:{index}$"):
+        cat.register("C", Relation.from_numpy("C", rows, P=2, device="cpu"))
+    if torch.cuda.device_count() > 1:
+        other = (index + 1) % torch.cuda.device_count()
+        with pytest.raises(ValueError, match=f"lies on cuda:{other}, catalog on cuda:{index}$"):
+            cat.register("O", Relation.from_numpy("O", rows, P=2, device=f"cuda:{other}"))
+
+
+def test_lose_recover_shard_on_card_no_aliasing(cuda):
+    from repro_torch.core.relation import Relation
+    from repro_torch.ft import elastic
+
+    rows = np.random.default_rng(3).integers(-99, 99, (1000, 3)).astype(np.int32)
+    rel = Relation.from_numpy("R", rows, P=8, device=cuda)
+    before = (rel.data.clone(), rel.valid.clone())
+    damaged = elastic.lose_shard(rel, 3)
+    assert damaged.data.is_cuda and damaged.data.data_ptr() != rel.data.data_ptr()
+    assert damaged.valid.data_ptr() != rel.valid.data_ptr()
+    assert not bool(damaged.valid[3].any()) and not bool(damaged.data[3].any())
+    assert torch.equal(rel.data, before[0]) and torch.equal(rel.valid, before[1])
+    recovered = elastic.recover_shard(damaged, rel, 3)
+    assert recovered.data.is_cuda
+    assert recovered.data.data_ptr() not in (rel.data.data_ptr(), damaged.data.data_ptr())
+    assert torch.equal(recovered.data, rel.data) and torch.equal(recovered.valid, rel.valid)
+    assert not bool(damaged.valid[3].any())
+    cpu = elastic.recover_shard(
+        elastic.lose_shard(Relation.from_numpy("R", rows, P=8, device="cpu"), 3),
+        Relation.from_numpy("R", rows, P=4, device="cpu"), 3)
+    other = elastic.recover_shard(damaged, Relation.from_numpy("R", rows, P=4, device=cuda), 3)
+    assert torch.equal(other.data.cpu(), cpu.data) and torch.equal(other.valid.cpu(), cpu.valid)

@@ -22,7 +22,13 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert {"repro_torch.kernels.msj_probe.ops", "repro_torch.kernels.bloom.ops",
-            "repro_torch.core.executor"} <= set(mods)
+            "repro_torch.core.executor", "repro_torch.obs.metrics",
+            "repro_torch.obs.perfetto", "repro_torch.analysis.verifier",
+            "repro_torch.analysis.sanitizer", "repro_torch.analysis.__main__",
+            "repro_torch.ft.elastic", "repro_torch.ft.supervisor",
+            "repro_torch.service.catalog", "repro_torch.service.plan_cache",
+            "repro_torch.service.result_cache", "repro_torch.service.scheduler",
+            "repro_torch.service.batcher"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
