@@ -18,7 +18,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    probe inputs captured from the full-size MSJ run (copied with their
    aliasing, so their distinct bytes give the bound); then times the
    wrapper, its table fill, table build and table probe alone, the plain
-   version and ``torch.isin`` at that shape.
+   version and ``torch.isin`` at that shape.  ``costmodel``: the hash join
+   and the torch sort-merge probe (``msj.probe_sorted``) timed at a
+   2**14-row shard and at that main-path shard, beside the cost model's
+   prices and choice at both and the kernel row weight their times fit.
 4. ``e2e``     — the A3 family (guard R arity 4, four unary conditionals
    sharing key x) through the planner and ``execute_plan`` on 16 shards:
    the 1-ROUND plan at 2**log2-rows rows per relation and the GREEDY plan
@@ -78,6 +81,22 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 8. ``oracle``  — the quickstart query on the card under PAR / GREEDY /
    1-ROUND, and 1-ROUND with the bloom prefilter, set-equal to the
    set-semantics oracle ``ref_engine``.
+9. ``lm_serve`` — the dense decoder's serving path (``repro_torch.models``,
+   ``repro_torch.serve``) at qwen3-0.6b's published size, random weights
+   from ``--seed``; one line per step.  ``card_vs_cpu``: prefill of 64
+   tokens and 2 decode steps on the card and on the CPU, float32 with
+   TF32 off, max |Δlogit| / max |logit| ≤ 1e-3.  ``teacher_forcing``:
+   prefill(S-1) + decode(1) against forward(S) at S = 1021 (a prime),
+   float32, ≤ 2e-3.  ``batching``: the continuous batcher (8 requests of
+   17–300 tokens, 16 new each, 4 slots) against unbatched greedy
+   generation, float32, tokens exactly equal.  ``serve``: 32 requests of
+   128–2048 tokens, 128 new each, 16 slots of 4096 positions in bf16,
+   timed per prefill and per decode wave against the wave's bytes over
+   HBM, with a profiler trace of three decode waves and the share of
+   first tokens equal to float32's.  ``sdpa_yardstick``: the port's flash
+   attention and ``scaled_dot_product_attention`` at 2048 tokens (the
+   yardstick is never on the path).  No kernel of the repo is on this
+   path: the launch counters, set to 0 before it, stay 0.
 
 Then a ``kernels`` JSON line, the raw ``nvidia-smi`` name/power line, and
 as the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -87,6 +106,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -101,6 +121,7 @@ SHARDS = 16  # P of the main path
 REPS = 20  # timed launches per measured kernel
 BLOCKED_LOG2_ROWS = 20  # rows per relation of the all-pairs probe's run
 SERVICE_LOG2_ROWS = 21  # rows per relation of the service's catalog
+COSTMODEL_SMALL_LOG2 = 14  # rows a side of the cost model's small shard
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 
@@ -385,6 +406,43 @@ def isin_ms(args):
 
     bp, pp = packed(build_sig, build_keys, build_ok), packed(probe_sig, probe_keys, probe_ok)
     return cuda_ms(lambda: torch.isin(pp, bp), REPS)
+
+
+def phase_costmodel(main_case) -> dict:
+    """The hash-join kernel and the torch sort-merge probe timed on the card
+    at a small shard (2**COSTMODEL_SMALL_LOG2 rows a side) and at the main
+    path's shard, beside the cost model's prices and choice there.  At each
+    size, the kernel's row weight (``KERNEL_ROW_WEIGHT``) for which
+    cost_kernel / cost_sorted equals the measured time ratio; the model
+    takes their geometric mean."""
+    import torch
+
+    from repro_torch.core import costmodel, msj
+    from repro_torch.kernels.msj_probe import ops
+
+    n = 2**COSTMODEL_SMALL_LOG2
+    gen = torch.Generator(device=DEVICE).manual_seed(4321)
+    sizes = {"small": probe_case(gen, n, n, 1, -n, n), "main": main_case}
+    line, weights = {"phase": "costmodel"}, []
+    for name, (args, kwargs) in sizes.items():
+        nb, np_, kw = int(args[0].shape[0]), int(args[3].shape[0]), int(args[1].shape[1])
+        if not torch.equal(ops.probe_bucketed(*args, **kwargs), msj.probe_sorted(*args, **kwargs)):
+            raise AssertionError(f"costmodel {name}: kernel and sort-merge probes differ")
+        t_kernel = cuda_ms(lambda: ops.probe_bucketed(*args, **kwargs), REPS)
+        t_sorted = cuda_ms(lambda: msj.probe_sorted(*args, **kwargs), REPS // 4)
+        c_sorted = costmodel.cost_sorted(nb, np_, kw)
+        weights.append(c_sorted * t_kernel / t_sorted / ((kw + 1) * (nb + np_)))
+        line[name] = {
+            "nb": nb, "np": np_, "kw": kw, "kernel_ms": t_kernel, "sorted_ms": t_sorted,
+            "cost_kernel": costmodel.cost_kernel(nb, np_, kw), "cost_sorted": c_sorted,
+            "choice": costmodel.choose_backend(nb, np_, kw, on_cuda=True),
+            "faster": "kernel" if t_kernel < t_sorted else "sorted",
+            "row_weight": weights[-1],
+        }
+    line["fit"] = {"KERNEL_ROW_WEIGHT": math.sqrt(weights[0] * weights[1]),
+                   "in_costmodel": costmodel.KERNEL_ROW_WEIGHT}
+    emit(line)
+    return line
 
 
 # --------------------------------------------------------------------------
@@ -1310,6 +1368,353 @@ def phase_service(log2_rows, P, seed) -> list:
 
 
 # --------------------------------------------------------------------------
+# phase 9: dense-transformer serving
+# --------------------------------------------------------------------------
+
+#: the ``lm_serve`` phase's sizes: qwen3-0.6b's published config, whole
+LM_SERVE = {
+    "arch": "qwen3-0.6b", "smoke": False,
+    "check_prompt": 64, "check_decode": 2, "check_max_len": 128,
+    "tf_len": 1021,  # a prime: the reference's chunking falls to chunks of 1
+    "batch_requests": 8, "batch_prompt": (17, 300), "batch_max_new": 16,
+    "batch_max_batch": 4, "batch_max_len": 512,
+    "serve_requests": 32, "serve_prompt": (128, 2048), "serve_max_new": 128,
+    "serve_max_batch": 16, "serve_max_len": 4096,
+    "sdpa_len": 2048,
+}
+CARD_VS_CPU_TOL = 1e-3  # max |Δlogit| / max |logit|, float32 without TF32
+TEACHER_FORCING_TOL = 2e-3  # the reference's own bound (tests/test_models.py)
+BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 (data sheet)
+
+
+def is_prime(n: int) -> bool:
+    return n > 1 and all(n % d for d in range(2, math.isqrt(n) + 1))
+
+
+def prompt_lengths(rng, n, lo, hi) -> list:
+    """``n`` lengths drawn from [lo, hi], at least one of them prime."""
+    lens = [int(x) for x in rng.integers(lo, hi + 1, n)]
+    if not any(map(is_prime, lens)):
+        primes = [p for p in range(lo, hi + 1) if is_prime(p)]
+        lens[0] = primes[int(rng.integers(len(primes)))]
+    return lens
+
+
+def lm_card_vs_cpu(cfg, params, rng, spec) -> dict:
+    """Prefill + decode logits on the card against the CPU, same weights
+    (carried across with ``params_to_numpy`` / ``params_from_numpy``)."""
+    import torch
+
+    from repro_torch.models import model
+
+    t0 = time.perf_counter()
+    S, n_dec = spec["check_prompt"], spec["check_decode"]
+    toks = rng.integers(0, cfg.vocab, (1, S + n_dec))
+    cpu = model.params_from_numpy(cfg, model.params_to_numpy(params), device="cpu")
+    outs = {}
+    for where, p in (("card", params), ("cpu", cpu)):
+        with torch.inference_mode():
+            t = torch.as_tensor(toks, device=p.device)
+            cache, logits = model.prefill(cfg, p, {"tokens": t[:, :S]}, spec["check_max_len"])
+            seq = [logits]
+            for i in range(n_dec):
+                cache, logits = model.decode_step(cfg, p, cache, t[:, S + i:S + i + 1])
+                seq.append(logits)
+        outs[where] = torch.stack(seq).cpu()
+    err = float((outs["card"] - outs["cpu"]).abs().max() / outs["cpu"].abs().max())
+    line = {"phase": "lm_serve", "step": "card_vs_cpu", "dtype": cfg.dtype, "prompt": S,
+            "decode_steps": n_dec, "rel_err": err, "tol": CARD_VS_CPU_TOL,
+            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    if not err <= CARD_VS_CPU_TOL:
+        raise AssertionError(f"lm_serve: card and CPU logits differ by {err} relative")
+    return line
+
+
+def lm_teacher_forcing(cfg, params, rng, spec) -> dict:
+    """prefill(S-1) + decode(1) against forward(S)'s last position."""
+    import torch
+
+    from repro_torch.models import model, transformer
+
+    t0 = time.perf_counter()
+    S = spec["tf_len"]
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, S)), device=params.device)
+    with torch.inference_mode():
+        cache, _ = model.prefill(cfg, params, {"tokens": toks[:, :-1]}, S)
+        _, dec = model.decode_step(cfg, params, cache, toks[:, -1:])
+        h, _, _ = transformer.forward(cfg, params, {"tokens": toks})
+        ref = h[:, -1] @ params.lm_head
+    err = float((ref - dec).abs().max() / ref.abs().max())
+    line = {"phase": "lm_serve", "step": "teacher_forcing", "dtype": cfg.dtype, "S": S,
+            "S_is_prime": is_prime(S), "rel_err": err, "tol": TEACHER_FORCING_TOL,
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    if not err <= TEACHER_FORCING_TOL:
+        raise AssertionError(f"lm_serve: decode and teacher forcing differ by {err} relative")
+    return line
+
+
+def lm_batching(cfg, params, rng, spec) -> dict:
+    """The continuous batcher's tokens against unbatched greedy generation."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.batcher import Batcher, Request
+    from repro_torch.serve.serve_step import greedy_generate
+
+    t0 = time.perf_counter()
+    lens = prompt_lengths(rng, spec["batch_requests"], *spec["batch_prompt"])
+    max_new, max_len = spec["batch_max_new"], spec["batch_max_len"]
+    reqs = [Request(i, rng.integers(0, cfg.vocab, n).astype(np.int32), max_new)
+            for i, n in enumerate(lens)]
+    b = Batcher(cfg, params, max_batch=spec["batch_max_batch"], max_len=max_len)
+    for r in reqs:
+        b.submit(r)
+    b.run()
+    for r in reqs:
+        batch = {"tokens": torch.as_tensor(r.prompt[None, :], device=params.device)}
+        want = greedy_generate(cfg, params, batch, steps=max_new, max_len=max_len)[0].tolist()
+        if not r.done or want != r.out:
+            raise AssertionError(f"lm_serve: request {r.rid} (prompt {len(r.prompt)}) batched "
+                                 f"{r.out}, unbatched {want}")
+    line = {"phase": "lm_serve", "step": "batching", "dtype": cfg.dtype, "prompts": lens,
+            "max_new": max_new, "max_batch": spec["batch_max_batch"], "max_len": max_len,
+            "tokens_equal": True, "seconds": time.perf_counter() - t0}
+    emit(line)
+    return line
+
+
+def lm_first_tokens(cfg, params, prompts) -> list:
+    """Each prompt's first generated token (the prefill's argmax)."""
+    import torch
+
+    from repro_torch.serve.serve_step import make_prefill
+
+    out = []
+    for prompt in prompts:
+        batch = {"tokens": torch.as_tensor(prompt[None, :], device=params.device)}
+        out.append(int(torch.argmax(make_prefill(cfg, len(prompt))(params, batch)[1][0])))
+    return out
+
+
+def lm_serving(cfg, params, reqs, first32, spec) -> dict:
+    """The batcher in the config's own dtype, timed per prefill and per
+    decode wave (host clock around work that ends in a synchronize)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.batcher import Batcher
+
+    t_step = time.perf_counter()
+    T = spec["serve_max_len"]
+    weight_bytes = sum(p.numel() * p.element_size() for n, p in params.named_parameters()
+                       if n != "embed")
+    torch.cuda.reset_peak_memory_stats()
+    b = Batcher(cfg, params, max_batch=spec["serve_max_batch"], max_len=T)
+    # one position of every layer's K and V
+    kv_token_bytes = cfg.n_layers * cfg.n_kv * cfg.head_dim * 2 * b.cache["k"].element_size()
+    finite = torch.ones((), dtype=torch.bool, device=params.device)
+    prefills, waves = [], []
+    prefill, decode = b.prefill, b.decode
+
+    def timed_prefill(p, batch):
+        nonlocal finite
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, logits = prefill(p, batch)
+        torch.cuda.synchronize()
+        prefills.append((batch["tokens"].shape[1], time.perf_counter() - t0))
+        finite = finite & torch.isfinite(logits).all()
+        return cache, logits
+
+    def timed_decode(p, cache, tokens):
+        nonlocal finite
+        clocks = cache["len"].tolist()  # synchronizes
+        active = [i for i, s in enumerate(b.slots) if s is not None]
+        t0 = time.perf_counter()
+        cache, logits = decode(p, cache, tokens)
+        torch.cuda.synchronize()
+        B = tokens.shape[0]
+        kv = sum(min(clocks[i] + 1, T) for i in active) * kv_token_bytes
+        need = (weight_bytes + B * cfg.d_model * params.embed.element_size() + kv
+                + B * kv_token_bytes + logits.numel() * logits.element_size())
+        waves.append((time.perf_counter() - t0, need, len(active)))
+        finite = finite & torch.isfinite(logits).all()
+        return cache, logits
+
+    b.prefill, b.decode = timed_prefill, timed_decode
+    for r in reqs:
+        b.submit(r)
+    t0 = time.perf_counter()
+    b.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not bool(finite):
+        raise AssertionError("lm_serve: non-finite logits in the bf16 serving run")
+    if not all(r.done and len(r.out) == r.max_new for r in reqs):
+        raise AssertionError("lm_serve: a request did not finish")
+    profile = lm_decode_profile(params, b, decode)
+    deciles = []
+    for part in np.array_split(np.array(sorted(prefills)), 10):
+        if len(part):
+            deciles.append({"prompt_tokens": [int(part[0, 0]), int(part[-1, 0])],
+                            "requests": len(part), "ms_mean": float(part[:, 1].mean() * 1e3),
+                            "tokens_per_s": float(part[:, 0].sum() / part[:, 1].sum())})
+    wave_s = np.array([w[0] for w in waves])
+    bound_s = np.array([w[1] for w in waves]) / HBM_BYTES_PER_S
+    decoded = sum(w[2] for w in waves)
+    generated = sum(len(r.out) for r in reqs)
+    line = {
+        "phase": "lm_serve", "step": "serve", "arch": cfg.name, "dtype": cfg.dtype,
+        "requests": len(reqs), "prompt_tokens": [len(r.prompt) for r in reqs],
+        "max_new": spec["serve_max_new"], "max_batch": spec["serve_max_batch"], "max_len": T,
+        "kv_cache_bytes": sum(t.numel() * t.element_size() for t in (b.cache["k"], b.cache["v"])),
+        "weight_bytes_per_step": weight_bytes,
+        "wall_s": wall, "generated_tokens": generated, "generated_tokens_per_s": generated / wall,
+        "prefill": {"seconds": sum(s for _, s in prefills), "by_prompt_decile": deciles},
+        "decode": {
+            "waves": len(waves), "tokens": decoded, "seconds": float(wave_s.sum()),
+            "tokens_per_s": decoded / float(wave_s.sum()),
+            "ms_per_wave_mean": float(wave_s.mean() * 1e3),
+            "ms_per_wave_median": float(np.median(wave_s) * 1e3),
+            "bound_ms_per_wave_mean": float(bound_s.mean() * 1e3),
+            "bound_share": float(bound_s.sum() / wave_s.sum()),
+            "bound_by": "bytes: weights (embedding rows gathered, not the table) + the "
+                        "active slots' valid KV + one KV token written per slot + logits",
+            "kv_bytes_full_cache_per_wave": b.cache["k"].numel() * 2 * b.cache["k"].element_size(),
+        },
+        "decode_profile": profile,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "first_token_equals_float32": sum(r.out[0] == f for r, f in zip(reqs, first32)) / len(reqs),
+        "logits_finite": True, "seconds": time.perf_counter() - t_step,
+    }
+    emit(line)
+    return line
+
+
+def lm_decode_profile(params, b, decode, waves: int = 3, top: int = 8) -> dict:
+    """``torch.profiler`` over ``waves`` full-width decode waves on the
+    batcher's final cache: device time by kernel per wave, and the device's
+    busy share of the traced window (its kernels' time over its wall)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(waves):
+            b.cache, _ = decode(params, b.cache, b.tokens)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # the device's own events (kernels, copies, memsets), not the host ops
+    # that launched them
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total = sum(device_us(e) for e in kernels)
+    kernels.sort(key=device_us, reverse=True)
+    return {
+        "waves": waves, "wall_ms_per_wave": wall_us / waves / 1e3,
+        "device_ms_per_wave": total / waves / 1e3 if kernels else "not measured",
+        "device_busy_share": total / wall_us if kernels else "not measured",
+        "kernels_per_wave": sum(e.count for e in kernels) / waves,
+        "top": [{"name": e.key[:120], "ms_per_wave": device_us(e) / waves / 1e3,
+                 "calls_per_wave": e.count / waves} for e in kernels[:top]],
+    }
+
+
+def lm_sdpa_yardstick(cfg, S, gen) -> dict:
+    """One prefill attention call at S tokens: the port's flash against
+    ``scaled_dot_product_attention`` (a yardstick only; never on the path)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models.layers import attention
+
+    dt = getattr(torch, cfg.dtype)
+
+    def rand(h):
+        return torch.randn((1, S, h, cfg.head_dim), generator=gen, device=DEVICE).to(dt)
+
+    q, k, v = rand(cfg.n_heads), rand(cfg.n_kv), rand(cfg.n_kv)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def flash():
+        return attention(q, k, v, causal=True, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    diff = float((flash().float() - sdpa().transpose(1, 2).float()).abs().max())
+    flash_ms, sdpa_ms = cuda_ms(flash, REPS), cuda_ms(sdpa, REPS)
+    ops = 4 * cfg.n_heads * cfg.head_dim * (S * (S + 1) // 2)  # QK and PV over causal pairs
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_TENSOR_OPS_PER_S * 1e3
+    line = {"phase": "lm_serve", "step": "sdpa_yardstick", "S": S, "dtype": cfg.dtype,
+            "heads": [cfg.n_heads, cfg.n_kv], "head_dim": cfg.head_dim,
+            "flash_ms": flash_ms, "sdpa_ms": sdpa_ms, "max_abs_diff": diff,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    emit(line)
+    return line
+
+
+def phase_lm_serve(seed: int, spec=LM_SERVE) -> list:
+    """The dense decoder's serving path (``repro_torch.models``,
+    ``repro_torch.serve``) at ``spec["arch"]``'s published size, weights
+    from ``seed``: card against CPU and teacher forcing in float32, the
+    continuous batcher against unbatched generation in float32 (tokens
+    exactly equal), then the batcher timed in the config's dtype, and the
+    flash-attention yardstick.  No kernel of the repo is on this path; the
+    launch counters are set to 0 before it and read after."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.serve.batcher import Request
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(seed)
+    cfg32 = get_config(spec["arch"], smoke=spec["smoke"], dtype="float32")
+    cfg = get_config(spec["arch"], smoke=spec["smoke"])
+    params32 = model.init_params(cfg32, seed, device=DEVICE)
+    lines = [lm_card_vs_cpu(cfg32, params32, rng, spec),
+             lm_teacher_forcing(cfg32, params32, rng, spec),
+             lm_batching(cfg32, params32, rng, spec)]
+    lens = [int(x) for x in rng.integers(spec["serve_prompt"][0], spec["serve_prompt"][1] + 1,
+                                         spec["serve_requests"])]
+    reqs = [Request(i, rng.integers(0, cfg.vocab, n).astype(np.int32), spec["serve_max_new"])
+            for i, n in enumerate(lens)]
+    first32 = lm_first_tokens(cfg32, params32, [r.prompt for r in reqs])
+    # the same draws in the config's dtype: the float32 weights, cast
+    params = model.init_params(cfg, seed, device=DEVICE)
+    if not torch.equal(params.lm_head, params32.lm_head.to(params.lm_head.dtype)):
+        raise AssertionError("lm_serve: the bf16 weights are not the float32 weights cast")
+    del params32
+    torch.cuda.empty_cache()
+    lines.append(lm_serving(cfg, params, reqs, first32, spec))
+    del params
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    lines.append(lm_sdpa_yardstick(cfg, spec["sdpa_len"], gen))
+    lines.append({"phase": "lm_serve", "step": "done", "launches": read_counts(),
+                  "seconds": time.perf_counter() - t_phase})
+    emit(lines[-1])
+    if any(lines[-1]["launches"].values()):
+        raise AssertionError("lm_serve: a kernel of the MSJ path launched on the serving path")
+    return lines
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1363,6 +1768,7 @@ def main() -> int:
 
     main_case, in_bytes = capture_main_path_probe(db, sjs, P)
     timing = phase_kernel(main_case, in_bytes)
+    phase_costmodel(main_case)
     del main_case
 
     e2e = [phase_e2e("one_round", db, plan_one_round(qs), P, rows)]
@@ -1405,6 +1811,8 @@ def main() -> int:
     e2e.extend({**line, "probe_wrapper": "probe_bucketed"} for line in service)
 
     phase_oracle()
+    torch.cuda.empty_cache()
+    phase_lm_serve(args.seed)
 
     sources = {
         "probe_bucketed": ("src/repro_torch/kernels/msj_probe/csrc/probe_hash.cu",

@@ -211,13 +211,38 @@ SORT_WEIGHT = 16.0
 #: modeled compare count looks cheap (e.g. 16 probes against 10^9 builds).
 DENSE_MAX_SIDE = 4096.0
 
+#: the CUDA hash join (``kernels/msj_probe/csrc/probe_hash.cu``), in the
+#: units of the sort-merge model: the weight per key word of each build row
+#: inserted into the table and each probe row looked up.  The card's
+#: kernel / sort-merge time ratio (0.122 at a 2**14-row shard, 0.107 at
+#: the main path's 15,120,032-row shard, KW = 1) implies 29.28 and 42.52:
+#: the ratio hardly moves while the sort-merge model's cost per row grows
+#: with log n.  This is their geometric mean, the least-squares fit of the
+#: log cost (``chip_smoke.py`` ``costmodel`` line, NVIDIA H100 80GB HBM3
+#: at 700 W; PERF.md §6).
+KERNEL_ROW_WEIGHT = 35.28
+
+
+def cost_dense(b: float, p: float, kw: int) -> float:
+    return b * p * (kw + 1)
+
+
+def cost_sorted(b: float, p: float, kw: int) -> float:
+    n = b + p
+    return SORT_WEIGHT * (kw + 1) * n * math.log2(max(n, 2.0))
+
+
+def cost_kernel(b: float, p: float, kw: int) -> float:
+    """Linear: one table build pass over the build rows and one lookup
+    pass over the probe rows, with no sort."""
+    return KERNEL_ROW_WEIGHT * (kw + 1) * (b + p)
+
 
 def choose_backend(
     build_rows: float | None,
     probe_rows: float | None,
     key_width: int = 1,
     *,
-    selectivity: float = 0.5,
     on_cuda: bool | None = None,
 ) -> str:
     """Pick the probe backend for ONE MSJ job from its relation statistics.
@@ -225,18 +250,17 @@ def choose_backend(
     Models the reducer work of the three backends (unit: one int32 column
     op over per-shard probe inputs):
 
-    * ``dense``  — quadratic all-pairs compare; no sort overhead, so it is
-      cheapest at trivial sizes.
+    * ``dense``  — quadratic all-pairs compare (:func:`cost_dense`); no
+      sort overhead, so it is cheapest at trivial sizes, and only taken
+      with at most ``DENSE_MAX_SIDE`` rows a side.
     * ``sorted`` — torch sort-merge over (sig, key): ``key_width + 1``
-      stable argsort passes, the robust default.
-    * ``kernel`` — the bucketed CUDA probe (DESIGN.md §6): one
-      single-column prune-key sort per side plus the band of same-bucket
-      build rows each probe tile compares against; the expected band mass
-      scales with the duplicate/overlap density, for which the semi-join
-      ``selectivity`` is the proxy.  ``on_cuda`` says whether the job's
-      relations live on a CUDA device; off CUDA the wrapper runs its plain
-      torch version, which has no edge over ``sorted``, so the kernel is
-      never chosen there (``None`` counts as off CUDA).
+      stable argsort passes (:func:`cost_sorted`), the robust default.
+    * ``kernel`` — the CUDA hash join (:func:`cost_kernel`): a table build
+      over the build side and a lookup per probe row, linear in both.
+      ``on_cuda`` says whether the job's relations live on a CUDA device;
+      off CUDA the wrapper runs its plain torch version, which has no edge
+      over ``sorted``, so the kernel is never chosen there (``None`` counts
+      as off CUDA).
 
     ``build_rows`` / ``probe_rows`` of ``None`` mean "unknown, assume
     large"; with no statistics the choice degenerates to the kernel on
@@ -245,21 +269,12 @@ def choose_backend(
     big = 1e9
     b = max(float(build_rows) if build_rows is not None else big, 1.0)
     p = max(float(probe_rows) if probe_rows is not None else big, 1.0)
-    n = b + p
     kw = max(int(key_width), 1)
-    logn = math.log2(max(n, 2.0))
-    cost_dense = b * p * (kw + 1)
-    cost_sorted = SORT_WEIGHT * (kw + 1) * n * logn
-    if on_cuda:
-        band = (b * p / n) * (1.0 + max(min(float(selectivity), 1.0), 0.0))
-        cost_kernel = SORT_WEIGHT * n * logn + band * (kw + 1)
-    else:
-        cost_kernel = math.inf
-    best, name = cost_sorted, "sorted"
-    if cost_kernel < best:
-        best, name = cost_kernel, "kernel"
-    if cost_dense < best and b <= DENSE_MAX_SIDE and p <= DENSE_MAX_SIDE:
-        best, name = cost_dense, "dense"
+    best, name = cost_sorted(b, p, kw), "sorted"
+    if on_cuda and cost_kernel(b, p, kw) < best:
+        best, name = cost_kernel(b, p, kw), "kernel"
+    if cost_dense(b, p, kw) < best and b <= DENSE_MAX_SIDE and p <= DENSE_MAX_SIDE:
+        best, name = cost_dense(b, p, kw), "dense"
     return name
 
 

@@ -447,12 +447,12 @@ class ExecutorConfig:
     compact: bool = True
     cap_slack: float = 1.0  # 1.0 = no-overflow bound; <1 risks CapacityFault
     max_retries: int = 3
-    #: reducer probe backend: "kernel" = the bucketed msj_probe probe (the
+    #: reducer probe backend: "kernel" = the msj_probe hash join (the
     #: CUDA kernel on the card, its plain torch version on the CPU),
     #: "sorted" = torch sort-merge, "dense" = the quadratic oracle.  The default "auto"
     #: resolves *per job* through the cost model
-    #: (costmodel.choose_backend) from that job's RelStats — rows, key
-    #: width, estimated selectivity — so one plan can mix backends.
+    #: (costmodel.choose_backend) from that job's RelStats — rows and key
+    #: width — so one plan can mix backends.
     probe_backend: str = "auto"
     #: two-phase count-sized forward shuffle (DESIGN.md §6); False restores
     #: the worst-case default_forward_cap bound.
@@ -631,7 +631,7 @@ def resolve_probe_backend(name: str, *, on_cuda: bool = False) -> Callable:
     (:func:`repro_torch.core.costmodel.choose_backend`).  The executor
     resolves per-job statistics first (:meth:`Executor._probe_backend_for`)
     and passes a concrete name here; a bare ``"auto"`` carries no
-    statistics and degenerates to the bucketed kernel when ``on_cuda`` and
+    statistics and degenerates to the hash-join kernel when ``on_cuda`` and
     torch sort-merge elsewhere.
     """
     from repro_torch.core import msj
@@ -706,8 +706,8 @@ class Executor:
     # -- per-job backend decision ------------------------------------------
     def _probe_backend_for(self, job: MSJJob) -> str:
         """Resolve ``probe_backend="auto"`` for ONE job: per-shard build /
-        probe row estimates, key width, and mean semi-join selectivity feed
-        the cost model, so jobs of one plan can land on different backends."""
+        probe row estimates and key width feed the cost model, so jobs of
+        one plan can land on different backends."""
         name = self.config.probe_backend
         if name != "auto":
             return name
@@ -725,10 +725,6 @@ class Executor:
         probe = [rows(i.guard_rel) for i in spec.sj_info]
         b = sum(build) / P if build and all(v is not None for v in build) else None
         p = sum(probe) / P if probe and all(v is not None for v in probe) else None
-        sel = 0.5
-        if self.stats is not None and job.sjs:
-            sels = [self.stats.selectivity(sj) for sj in job.sjs]
-            sel = sum(sels) / len(sels)
         # the kernel is priced from where the job's relations live, not
         # from whether the process has a card: CPU-resident data on a
         # machine with a GPU runs the plain version and is not a kernel job
@@ -736,7 +732,7 @@ class Executor:
             isinstance(self.env.get(r), Relation) and self.env[r].data.is_cuda
             for r in {s.rel for s in spec.sigs} | {i.guard_rel for i in spec.sj_info}
         )
-        return choose_backend(b, p, spec.key_width, selectivity=sel, on_cuda=on_cuda)
+        return choose_backend(b, p, spec.key_width, on_cuda=on_cuda)
 
     # -- single jobs -------------------------------------------------------
     def run_job(

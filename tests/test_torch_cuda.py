@@ -2,12 +2,14 @@
 behind the bucketed and the all-pairs probe; bloom build, pack and probe)
 against its plain torch version and its oracle, and MSJ runs on the card
 (default, with the bloom prefilter, with the all-pairs probe) against the
-same runs on the CPU.  They need a CUDA device and skip without one; on a
-machine with a card run them with
+same runs on the CPU, and the dense decoder's serving path on the card
+against the CPU (no kernel of the repo is on it).  They need a CUDA
+device and skip without one; on a machine with a card run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Exact equality: hits and outputs are booleans and int32 values."""
+Exact equality: hits and outputs are booleans and int32 values; logits
+within a stated float32 tolerance."""
 import numpy as np
 import pytest
 
@@ -370,3 +372,41 @@ def test_lose_recover_shard_on_card_no_aliasing(cuda):
         Relation.from_numpy("R", rows, P=4, device="cpu"), 3)
     other = elastic.recover_shard(damaged, Relation.from_numpy("R", rows, P=4, device=cuda), 3)
     assert torch.equal(other.data.cpu(), cpu.data) and torch.equal(other.valid.cpu(), cpu.valid)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-72b"])
+def test_dense_serving_on_card_equals_cpu(cuda, arch):
+    """The dense decoder's prefill and decode logits on the card against
+    the CPU, float32 with TF32 off, same weights: within 1e-4 × max |logit|
+    (summation order only); the batcher's tokens equal unbatched
+    generation's on the card, exactly."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.serve.batcher import Batcher, Request
+    from repro_torch.serve.serve_step import greedy_generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, smoke=True, dtype="float32")
+    card = model.init_params(cfg, 0, device=cuda)
+    cpu = model.params_from_numpy(cfg, model.params_to_numpy(card), device="cpu")
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (2, 33))
+    logits = {}
+    for where, p in (("card", card), ("cpu", cpu)):
+        t = torch.as_tensor(tokens, device=p.device)
+        with torch.inference_mode():
+            cache, a = model.prefill(cfg, p, {"tokens": t[:, :31]}, 48)
+            cache, b = model.decode_step(cfg, p, cache, t[:, 31:32])
+            cache, c = model.decode_step(cfg, p, cache, t[:, 32:33])
+        logits[where] = torch.stack([a, b, c]).cpu()
+    err = (logits["card"] - logits["cpu"]).abs().max() / logits["cpu"].abs().max()
+    assert float(err) <= 1e-4
+    rng = np.random.default_rng(2)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, n).astype(np.int32), 6)
+            for i, n in enumerate((7, 29, 3, 16, 11))]
+    b = Batcher(cfg, card, max_batch=3, max_len=48)
+    for r in reqs:
+        b.submit(r)
+    b.run()
+    for r in reqs:
+        batch = {"tokens": torch.as_tensor(r.prompt[None, :], device=cuda)}
+        assert greedy_generate(cfg, card, batch, steps=6, max_len=48)[0].tolist() == r.out

@@ -28,7 +28,12 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.ft.elastic", "repro_torch.ft.supervisor",
             "repro_torch.service.catalog", "repro_torch.service.plan_cache",
             "repro_torch.service.result_cache", "repro_torch.service.scheduler",
-            "repro_torch.service.batcher"} <= set(mods)
+            "repro_torch.service.batcher", "repro_torch.configs", "repro_torch.configs.base",
+            "repro_torch.configs.qwen3_0_6b", "repro_torch.models.layers",
+            "repro_torch.models.flash", "repro_torch.models.kvcache",
+            "repro_torch.models.transformer", "repro_torch.models.model",
+            "repro_torch.serve.serve_step", "repro_torch.serve.batcher",
+            "repro_torch.launch.serve"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
