@@ -81,22 +81,34 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 8. ``oracle``  — the quickstart query on the card under PAR / GREEDY /
    1-ROUND, and 1-ROUND with the bloom prefilter, set-equal to the
    set-semantics oracle ``ref_engine``.
-9. ``lm_serve`` — the dense decoder's serving path (``repro_torch.models``,
-   ``repro_torch.serve``) at qwen3-0.6b's published size, random weights
-   from ``--seed``; one line per step.  ``card_vs_cpu``: prefill of 64
-   tokens and 2 decode steps on the card and on the CPU, float32 with
-   TF32 off, max |Δlogit| / max |logit| ≤ 1e-3.  ``teacher_forcing``:
-   prefill(S-1) + decode(1) against forward(S) at S = 1021 (a prime),
-   float32, ≤ 2e-3.  ``batching``: the continuous batcher (8 requests of
-   17–300 tokens, 16 new each, 4 slots) against unbatched greedy
-   generation, float32, tokens exactly equal.  ``serve``: 32 requests of
-   128–2048 tokens, 128 new each, 16 slots of 4096 positions in bf16,
-   timed per prefill and per decode wave against the wave's bytes over
-   HBM, with a profiler trace of three decode waves and the share of
-   first tokens equal to float32's.  ``sdpa_yardstick``: the port's flash
-   attention and ``scaled_dot_product_attention`` at 2048 tokens (the
-   yardstick is never on the path).  No kernel of the repo is on this
-   path: the launch counters, set to 0 before it, stay 0.
+9. ``lm_serve`` — the model zoo's serving path (``repro_torch.models``,
+   ``repro_torch.serve``), once per family at its published size, random
+   weights from ``--seed`` (``LM_SERVE``): qwen3-0.6b (dense),
+   olmoe-1b-7b (MoE, 64 experts top-8), falcon-mamba-7b (Mamba-1) and
+   zamba2-7b (Mamba-2 + shared attention); one line per step.
+   ``card_vs_cpu``: prefill of 64 tokens and 2 decode steps on the card
+   and on the CPU, float32 with TF32 off, max |Δlogit| / max |logit| ≤
+   1e-3 (the 7B models at full width with their depth cut, so that the
+   host's copy stays small: 2 layers, zamba2 one group and one tail
+   layer).  ``teacher_forcing``: prefill(S-1) + decode(1) against
+   forward(S) at S = 1021 (a prime), the whole model in float32, ≤ 2e-3.
+   ``moe_dispatch`` (olmoe): one layer's ``moe_sort`` against
+   ``moe_dense`` over 2048 tokens, ≤ 1e-4 with nothing dropped, and the
+   dropped pairs at capacity factor 1.25 against a recount on the host.
+   ``scan`` (falcon-mamba): one layer's chunked ``mamba1`` against its
+   step-by-step ``mamba1_decode`` at S = 256, ≤ 1e-3.  ``batching``: the
+   continuous batcher (8 requests of 17–300 tokens, 16 new each, 4
+   slots) against unbatched greedy generation, float32, tokens exactly
+   equal.  ``serve``: 32 requests of 128–2048 tokens (zamba2: 16), 128
+   new each (the 7B models: 64), 16 slots of 4096 positions (zamba2: 8)
+   in bf16, timed per prefill and per decode wave against the wave's
+   bytes over HBM (weights, valid KV, SSM states read and written; for
+   olmoe also with only the routed experts' weights), with a profiler
+   trace of three decode waves and the share of first tokens equal to
+   float32's.  ``sdpa_yardstick`` (qwen3): the port's flash attention and
+   ``scaled_dot_product_attention`` at 2048 tokens (the yardstick is never
+   on the path).  No kernel of the repo is on these paths: the launch
+   counters, set to 0 before each family, stay 0.
 
 Then a ``kernels`` JSON line, the raw ``nvidia-smi`` name/power line, and
 as the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -105,6 +117,7 @@ device it exits 1 before printing any result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -1368,23 +1381,36 @@ def phase_service(log2_rows, P, seed) -> list:
 
 
 # --------------------------------------------------------------------------
-# phase 9: dense-transformer serving
+# phase 9: serving the model zoo (dense, MoE, SSM, hybrid)
 # --------------------------------------------------------------------------
 
-#: the ``lm_serve`` phase's sizes: qwen3-0.6b's published config, whole
-LM_SERVE = {
-    "arch": "qwen3-0.6b", "smoke": False,
-    "check_prompt": 64, "check_decode": 2, "check_max_len": 128,
-    "tf_len": 1021,  # a prime: the reference's chunking falls to chunks of 1
-    "batch_requests": 8, "batch_prompt": (17, 300), "batch_max_new": 16,
-    "batch_max_batch": 4, "batch_max_len": 512,
-    "serve_requests": 32, "serve_prompt": (128, 2048), "serve_max_new": 128,
-    "serve_max_batch": 16, "serve_max_len": 4096,
-    "sdpa_len": 2048,
-}
+#: the ``lm_serve`` phase's sizes, one spec per family, each at its
+#: published config (``check_layers``: the card-against-CPU step's depth
+#: cut, which keeps the CPU's copy small; None runs the whole model there)
+_SERVE_STEPS = {"check_prompt": 64, "check_decode": 2, "check_max_len": 128,
+                "tf_len": 1021,  # a prime: the reference's chunking falls to chunks of 1
+                "batch_requests": 8, "batch_prompt": (17, 300), "batch_max_new": 16,
+                "batch_max_batch": 4, "batch_max_len": 512,
+                "serve_prompt": (128, 2048), "serve_max_len": 4096}
+LM_SERVE = [
+    {**_SERVE_STEPS, "arch": "qwen3-0.6b", "smoke": False, "check_layers": None,
+     "serve_requests": 32, "serve_max_new": 128, "serve_max_batch": 16, "sdpa_len": 2048},
+    {**_SERVE_STEPS, "arch": "olmoe-1b-7b", "smoke": False, "check_layers": 2,
+     "serve_requests": 32, "serve_max_new": 64, "serve_max_batch": 16,
+     "moe_dispatch_tokens": 2048},
+    {**_SERVE_STEPS, "arch": "falcon-mamba-7b", "smoke": False, "check_layers": 2,
+     "serve_requests": 32, "serve_max_new": 64, "serve_max_batch": 16, "scan_len": 256},
+    {**_SERVE_STEPS, "arch": "zamba2-7b", "smoke": False,
+     "check_layers": 7,  # one group of 6 and one tail layer
+     "serve_requests": 16, "serve_max_new": 64, "serve_max_batch": 8},
+]
 CARD_VS_CPU_TOL = 1e-3  # max |Δlogit| / max |logit|, float32 without TF32
 TEACHER_FORCING_TOL = 2e-3  # the reference's own bound (tests/test_models.py)
+MOE_DISPATCH_TOL = 1e-4  # moe_sort with nothing dropped against moe_dense, float32
+SCAN_TOL = 1e-3  # chunked mamba1 against its recurrence (tests/test_models.py: rtol 1e-3)
 BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 (data sheet)
+KV_LEAVES = ("k", "v", "attn_k", "attn_v")  # (layers, B, T, Hkv, D)
+STATE_LEAVES = ("conv", "ssm", "conv_tail", "ssm_tail")  # per-slot SSM state
 
 
 def is_prime(n: int) -> bool:
@@ -1400,14 +1426,28 @@ def prompt_lengths(rng, n, lo, hi) -> list:
     return lens
 
 
-def lm_card_vs_cpu(cfg, params, rng, spec) -> dict:
+def rel_err(want, got) -> float:
+    return float((want - got).abs().max() / want.abs().max())
+
+
+def lm_card_vs_cpu(cfg, params, rng, spec, seed) -> dict:
     """Prefill + decode logits on the card against the CPU, same weights
-    (carried across with ``params_to_numpy`` / ``params_from_numpy``)."""
+    (carried across with ``params_to_numpy`` / ``params_from_numpy``).
+    With ``check_layers`` the step builds its own model of that depth at
+    full width from ``seed``, so that no whole 7B model is copied to the
+    host."""
+    import dataclasses
+
     import torch
 
     from repro_torch.models import model
 
     t0 = time.perf_counter()
+    reduced = None
+    if spec["check_layers"]:
+        reduced = {"n_layers": [spec["check_layers"], cfg.n_layers]}
+        cfg = dataclasses.replace(cfg, n_layers=spec["check_layers"])
+        params = model.init_params(cfg, seed, device=DEVICE)
     S, n_dec = spec["check_prompt"], spec["check_decode"]
     toks = rng.integers(0, cfg.vocab, (1, S + n_dec))
     cpu = model.params_from_numpy(cfg, model.params_to_numpy(params), device="cpu")
@@ -1421,22 +1461,38 @@ def lm_card_vs_cpu(cfg, params, rng, spec) -> dict:
                 cache, logits = model.decode_step(cfg, p, cache, t[:, S + i:S + i + 1])
                 seq.append(logits)
         outs[where] = torch.stack(seq).cpu()
-    err = float((outs["card"] - outs["cpu"]).abs().max() / outs["cpu"].abs().max())
-    line = {"phase": "lm_serve", "step": "card_vs_cpu", "dtype": cfg.dtype, "prompt": S,
-            "decode_steps": n_dec, "rel_err": err, "tol": CARD_VS_CPU_TOL,
+    del params, cpu
+    err = rel_err(outs["cpu"], outs["card"])
+    line = {"phase": "lm_serve", "arch": cfg.name, "step": "card_vs_cpu", "dtype": cfg.dtype,
+            "n_layers": cfg.n_layers, "reduced": reduced, "prompt": S, "decode_steps": n_dec,
+            "rel_err": err, "tol": CARD_VS_CPU_TOL,
             "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
             "seconds": time.perf_counter() - t0}
     emit(line)
     if not err <= CARD_VS_CPU_TOL:
-        raise AssertionError(f"lm_serve: card and CPU logits differ by {err} relative")
+        raise AssertionError(f"lm_serve {cfg.name}: card and CPU logits differ by {err} "
+                             "relative")
     return line
+
+
+def last_hidden(cfg, params, tokens):
+    """The family's full-sequence forward, final hidden state of the last
+    position."""
+    from repro_torch.models import hybrid, ssm_model, transformer
+
+    batch = {"tokens": tokens}
+    if cfg.family == "ssm":
+        return ssm_model.forward(cfg, params, batch)[:, -1]
+    if cfg.family == "hybrid":
+        return hybrid.forward(cfg, params, batch)[:, -1]
+    return transformer.forward(cfg, params, batch)[0][:, -1]
 
 
 def lm_teacher_forcing(cfg, params, rng, spec) -> dict:
     """prefill(S-1) + decode(1) against forward(S)'s last position."""
     import torch
 
-    from repro_torch.models import model, transformer
+    from repro_torch.models import model
 
     t0 = time.perf_counter()
     S = spec["tf_len"]
@@ -1444,15 +1500,16 @@ def lm_teacher_forcing(cfg, params, rng, spec) -> dict:
     with torch.inference_mode():
         cache, _ = model.prefill(cfg, params, {"tokens": toks[:, :-1]}, S)
         _, dec = model.decode_step(cfg, params, cache, toks[:, -1:])
-        h, _, _ = transformer.forward(cfg, params, {"tokens": toks})
-        ref = h[:, -1] @ params.lm_head
-    err = float((ref - dec).abs().max() / ref.abs().max())
-    line = {"phase": "lm_serve", "step": "teacher_forcing", "dtype": cfg.dtype, "S": S,
-            "S_is_prime": is_prime(S), "rel_err": err, "tol": TEACHER_FORCING_TOL,
-            "seconds": time.perf_counter() - t0}
+        del cache
+        ref = last_hidden(cfg, params, toks) @ params.lm_head
+    err = rel_err(ref, dec)
+    line = {"phase": "lm_serve", "arch": cfg.name, "step": "teacher_forcing",
+            "dtype": cfg.dtype, "n_layers": cfg.n_layers, "S": S, "S_is_prime": is_prime(S),
+            "rel_err": err, "tol": TEACHER_FORCING_TOL, "seconds": time.perf_counter() - t0}
     emit(line)
     if not err <= TEACHER_FORCING_TOL:
-        raise AssertionError(f"lm_serve: decode and teacher forcing differ by {err} relative")
+        raise AssertionError(f"lm_serve {cfg.name}: decode and teacher forcing differ by "
+                             f"{err} relative")
     return line
 
 
@@ -1477,12 +1534,84 @@ def lm_batching(cfg, params, rng, spec) -> dict:
         batch = {"tokens": torch.as_tensor(r.prompt[None, :], device=params.device)}
         want = greedy_generate(cfg, params, batch, steps=max_new, max_len=max_len)[0].tolist()
         if not r.done or want != r.out:
-            raise AssertionError(f"lm_serve: request {r.rid} (prompt {len(r.prompt)}) batched "
-                                 f"{r.out}, unbatched {want}")
-    line = {"phase": "lm_serve", "step": "batching", "dtype": cfg.dtype, "prompts": lens,
-            "max_new": max_new, "max_batch": spec["batch_max_batch"], "max_len": max_len,
-            "tokens_equal": True, "seconds": time.perf_counter() - t0}
+            raise AssertionError(f"lm_serve {cfg.name}: request {r.rid} (prompt "
+                                 f"{len(r.prompt)}) batched {r.out}, unbatched {want}")
+    line = {"phase": "lm_serve", "arch": cfg.name, "step": "batching", "dtype": cfg.dtype,
+            "prompts": lens, "max_new": max_new, "max_batch": spec["batch_max_batch"],
+            "max_len": max_len, "tokens_equal": True, "seconds": time.perf_counter() - t0}
     emit(line)
+    return line
+
+
+def lm_moe_dispatch(cfg, params, rng, spec) -> dict:
+    """One layer's experts at full width over ``moe_dispatch_tokens``
+    tokens: ``moe_sort`` with capacity factor E/k (C = N, nothing drops)
+    against ``moe_dense``; at the config's capacity factor, the dropped
+    (token, expert) pairs counted by the dispatch against a plain recount
+    on the host from the same router indices.  Times both paths."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import moe
+
+    t0 = time.perf_counter()
+    layer = params.layers[0].moe
+    N, E, k = spec["moe_dispatch_tokens"], cfg.n_experts, cfg.top_k
+    x = torch.as_tensor(rng.standard_normal((1, N, cfg.d_model)), dtype=torch.float32,
+                        device=params.device)
+    with torch.inference_mode():
+        dense = moe.moe_dense(layer, x, k)
+        ample = moe.moe_sort(layer, x, k, E / k)
+        err = rel_err(dense, ample)
+        C = moe.capacity(N, k, E, cfg.capacity_factor)
+        idx, _ = moe.router_topk(x.reshape(N, -1), layer.router, k)
+        dropped = int((~moe.dispatch(idx, E, C)[2]).sum())
+        counts = np.bincount(idx.cpu().numpy().ravel(), minlength=E)
+        recount = int(np.maximum(counts - C, 0).sum())
+        capped = moe.moe_sort(layer, x, k, cfg.capacity_factor)
+        finite = bool(torch.isfinite(capped).all())
+        dense_ms = cuda_ms(lambda: moe.moe_dense(layer, x, k), 5)
+        sort_ms = cuda_ms(lambda: moe.moe_sort(layer, x, k, cfg.capacity_factor), 5)
+    line = {"phase": "lm_serve", "arch": cfg.name, "step": "moe_dispatch", "dtype": cfg.dtype,
+            "tokens": N, "experts": E, "top_k": k, "rel_err_no_drops": err,
+            "tol": MOE_DISPATCH_TOL, "capacity_factor": cfg.capacity_factor, "capacity": C,
+            "dropped_pairs": dropped, "dropped_recount": recount, "pairs": N * k,
+            "expert_load_max": int(counts.max()), "finite": finite, "dense_ms": dense_ms,
+            "sort_ms": sort_ms, "seconds": time.perf_counter() - t0}
+    emit(line)
+    if not (err <= MOE_DISPATCH_TOL and dropped == recount and finite):
+        raise AssertionError(f"lm_serve {cfg.name}: moe_dispatch failed: {line}")
+    return line
+
+
+def lm_scan(cfg, params, rng, spec) -> dict:
+    """One Mamba-1 layer at full width: the chunked block against its
+    token-by-token decode recurrence over ``scan_len`` tokens (the
+    reference's own check, ``tests/test_models.py``)."""
+    import torch
+
+    from repro_torch.models import ssm
+
+    t0 = time.perf_counter()
+    S, N = spec["scan_len"], cfg.ssm_state
+    layer = params.layers[0].mamba
+    x = torch.as_tensor(rng.standard_normal((1, S, cfg.d_model)), dtype=torch.float32,
+                        device=params.device)
+    with torch.inference_mode():
+        full = ssm.mamba1(layer, x, d_state=N, chunk=cfg.ssm_chunk)
+        cache = ssm.mamba1_init_cache(layer, 1, N, dtype=torch.float32)
+        steps = []
+        for i in range(S):
+            cache, y = ssm.mamba1_decode(layer, cache, x[:, i], d_state=N)
+            steps.append(y)
+        err = rel_err(full, torch.stack(steps, 1))
+    line = {"phase": "lm_serve", "arch": cfg.name, "step": "scan", "dtype": cfg.dtype, "S": S,
+            "chunk": cfg.ssm_chunk, "d_inner": layer.conv_w.shape[0], "rel_err": err,
+            "tol": SCAN_TOL, "seconds": time.perf_counter() - t0}
+    emit(line)
+    if not err <= SCAN_TOL:
+        raise AssertionError(f"lm_serve {cfg.name}: chunked scan and recurrence differ by "
+                             f"{err} relative")
     return line
 
 
@@ -1499,22 +1628,54 @@ def lm_first_tokens(cfg, params, prompts) -> list:
     return out
 
 
+def cache_bytes(cache) -> tuple:
+    """(bytes of one position of every KV leaf, KV positions per slot T,
+    bytes of one slot's SSM state) of a batch cache."""
+    B = cache["len"].shape[0]
+    kv = [cache[n] for n in KV_LEAVES if n in cache]
+    T = kv[0].shape[2] if kv else 0
+    per_pos = sum(t.numel() // (B * T) * t.element_size() for t in kv)
+    state = sum(cache[n].numel() // B * cache[n].element_size() for n in STATE_LEAVES
+                if n in cache)
+    return per_pos, T, state
+
+
 def lm_serving(cfg, params, reqs, first32, spec) -> dict:
     """The batcher in the config's own dtype, timed per prefill and per
-    decode wave (host clock around work that ends in a synchronize)."""
+    decode wave (host clock around work that ends in a synchronize).
+
+    Each wave's bound is the bytes it must move over HBM: the weights (the
+    embedding rows gathered, not the table), the active slots' valid KV and
+    one KV position written per slot, the active slots' SSM states read and
+    written, the logits.  A MoE config gets a second bound that reads only
+    the experts its active slots' tokens route to (``moe_dense`` reads all
+    of them); the routes are recorded per wave, off the timed work."""
     import numpy as np
     import torch
 
+    from repro_torch.models import moe
     from repro_torch.serve.batcher import Batcher
 
     t_step = time.perf_counter()
-    T = spec["serve_max_len"]
+    T_max = spec["serve_max_len"]
     weight_bytes = sum(p.numel() * p.element_size() for n, p in params.named_parameters()
                        if n != "embed")
     torch.cuda.reset_peak_memory_stats()
-    b = Batcher(cfg, params, max_batch=spec["serve_max_batch"], max_len=T)
-    # one position of every layer's K and V
-    kv_token_bytes = cfg.n_layers * cfg.n_kv * cfg.head_dim * 2 * b.cache["k"].element_size()
+    at_start = torch.cuda.memory_allocated()
+    b = Batcher(cfg, params, max_batch=spec["serve_max_batch"], max_len=T_max)
+    kv_pos_bytes, T, state_bytes = cache_bytes(b.cache)
+    expert_bytes = routes = None
+    if cfg.family == "moe":
+        w = params.layers[0].moe.w1
+        expert_bytes = 3 * cfg.d_model * cfg.d_ff * w.element_size()
+        routes, router_topk = [], moe.router_topk
+
+        def recording_topk(x, router_w, top_k):
+            idx, wts = router_topk(x, router_w, top_k)
+            routes.append(idx)
+            return idx, wts
+
+        moe.router_topk = recording_topk
     finite = torch.ones((), dtype=torch.bool, device=params.device)
     prefills, waves = [], []
     prefill, decode = b.prefill, b.decode
@@ -1533,14 +1694,23 @@ def lm_serving(cfg, params, reqs, first32, spec) -> dict:
         nonlocal finite
         clocks = cache["len"].tolist()  # synchronizes
         active = [i for i, s in enumerate(b.slots) if s is not None]
+        if routes is not None:
+            routes.clear()
         t0 = time.perf_counter()
         cache, logits = decode(p, cache, tokens)
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
         B = tokens.shape[0]
-        kv = sum(min(clocks[i] + 1, T) for i in active) * kv_token_bytes
+        kv = sum(min(clocks[i] + 1, T) for i in active) * kv_pos_bytes
         need = (weight_bytes + B * cfg.d_model * params.embed.element_size() + kv
-                + B * kv_token_bytes + logits.numel() * logits.element_size())
-        waves.append((time.perf_counter() - t0, need, len(active)))
+                + B * kv_pos_bytes + 2 * len(active) * state_bytes
+                + logits.numel() * logits.element_size())
+        routed = need
+        if routes is not None:  # the experts no active slot routes to are not read
+            rows = torch.as_tensor(active, device=tokens.device)
+            used = sum(int(torch.unique(idx.reshape(B, -1)[rows]).numel()) for idx in routes)
+            routed = need - (cfg.n_experts * len(routes) - used) * expert_bytes
+        waves.append((wall, need, routed, len(active)))
         finite = finite & torch.isfinite(logits).all()
         return cache, logits
 
@@ -1548,13 +1718,21 @@ def lm_serving(cfg, params, reqs, first32, spec) -> dict:
     for r in reqs:
         b.submit(r)
     t0 = time.perf_counter()
-    b.run()
-    torch.cuda.synchronize()
+    try:
+        b.run()
+        torch.cuda.synchronize()
+    finally:
+        # the timed closures refer to b: put the batcher's own back, so that
+        # no cycle keeps its cache and weights alive past this step
+        b.prefill, b.decode = prefill, decode
+        if routes is not None:
+            moe.router_topk = router_topk
     wall = time.perf_counter() - t0
     if not bool(finite):
-        raise AssertionError("lm_serve: non-finite logits in the bf16 serving run")
+        raise AssertionError(f"lm_serve {cfg.name}: non-finite logits in the bf16 serving run")
     if not all(r.done and len(r.out) == r.max_new for r in reqs):
-        raise AssertionError("lm_serve: a request did not finish")
+        raise AssertionError(f"lm_serve {cfg.name}: a request did not finish")
+    peak = torch.cuda.max_memory_allocated()
     profile = lm_decode_profile(params, b, decode)
     deciles = []
     for part in np.array_split(np.array(sorted(prefills)), 10):
@@ -1564,29 +1742,42 @@ def lm_serving(cfg, params, reqs, first32, spec) -> dict:
                             "tokens_per_s": float(part[:, 0].sum() / part[:, 1].sum())})
     wave_s = np.array([w[0] for w in waves])
     bound_s = np.array([w[1] for w in waves]) / HBM_BYTES_PER_S
-    decoded = sum(w[2] for w in waves)
+    decoded = sum(w[3] for w in waves)
     generated = sum(len(r.out) for r in reqs)
+    decode_line = {
+        "waves": len(waves), "tokens": decoded, "seconds": float(wave_s.sum()),
+        "tokens_per_s": decoded / float(wave_s.sum()),
+        "ms_per_wave_mean": float(wave_s.mean() * 1e3),
+        "ms_per_wave_median": float(np.median(wave_s) * 1e3),
+        "bound_ms_per_wave_mean": float(bound_s.mean() * 1e3),
+        "bound_share": float(bound_s.sum() / wave_s.sum()),
+        "bound_by": "bytes: weights (embedding rows gathered, not the table) + the active "
+                    "slots' valid KV + one KV position written per slot + the active "
+                    "slots' SSM states read and written + logits",
+    }
+    if routes is not None:
+        routed_s = np.array([w[2] for w in waves]) / HBM_BYTES_PER_S
+        decode_line.update({
+            "bound_ms_per_wave_mean_routed_experts": float(routed_s.mean() * 1e3),
+            "bound_share_routed_experts": float(routed_s.sum() / wave_s.sum()),
+            "bound_by_routed_experts": "the same bytes, reading only the experts the active "
+                                       "slots' tokens route to in each layer"})
     line = {
-        "phase": "lm_serve", "step": "serve", "arch": cfg.name, "dtype": cfg.dtype,
-        "requests": len(reqs), "prompt_tokens": [len(r.prompt) for r in reqs],
-        "max_new": spec["serve_max_new"], "max_batch": spec["serve_max_batch"], "max_len": T,
-        "kv_cache_bytes": sum(t.numel() * t.element_size() for t in (b.cache["k"], b.cache["v"])),
+        "phase": "lm_serve", "arch": cfg.name, "step": "serve", "card": nvidia_smi(),
+        "dtype": cfg.dtype, "n_layers": cfg.n_layers, "requests": len(reqs),
+        "prompt_tokens": [len(r.prompt) for r in reqs],
+        "max_new": spec["serve_max_new"], "max_batch": spec["serve_max_batch"],
+        "max_len": T_max, "kv_positions": T,
+        "kv_cache_bytes": sum(b.cache[n].numel() * b.cache[n].element_size()
+                              for n in KV_LEAVES if n in b.cache),
+        "kv_bytes_per_slot": kv_pos_bytes * T, "state_bytes_per_slot": state_bytes,
         "weight_bytes_per_step": weight_bytes,
         "wall_s": wall, "generated_tokens": generated, "generated_tokens_per_s": generated / wall,
         "prefill": {"seconds": sum(s for _, s in prefills), "by_prompt_decile": deciles},
-        "decode": {
-            "waves": len(waves), "tokens": decoded, "seconds": float(wave_s.sum()),
-            "tokens_per_s": decoded / float(wave_s.sum()),
-            "ms_per_wave_mean": float(wave_s.mean() * 1e3),
-            "ms_per_wave_median": float(np.median(wave_s) * 1e3),
-            "bound_ms_per_wave_mean": float(bound_s.mean() * 1e3),
-            "bound_share": float(bound_s.sum() / wave_s.sum()),
-            "bound_by": "bytes: weights (embedding rows gathered, not the table) + the "
-                        "active slots' valid KV + one KV token written per slot + logits",
-            "kv_bytes_full_cache_per_wave": b.cache["k"].numel() * 2 * b.cache["k"].element_size(),
-        },
+        "decode": decode_line,
         "decode_profile": profile,
-        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "allocated_at_start_bytes": at_start, "peak_mem_bytes": peak,
+        "peak_mem_bytes_with_profile": torch.cuda.max_memory_allocated(),
         "first_token_equals_float32": sum(r.out[0] == f for r, f in zip(reqs, first32)) / len(reqs),
         "logits_finite": True, "seconds": time.perf_counter() - t_step,
     }
@@ -1655,7 +1846,8 @@ def lm_sdpa_yardstick(cfg, S, gen) -> dict:
     ops = 4 * cfg.n_heads * cfg.head_dim * (S * (S + 1) // 2)  # QK and PV over causal pairs
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_TENSOR_OPS_PER_S * 1e3
-    line = {"phase": "lm_serve", "step": "sdpa_yardstick", "S": S, "dtype": cfg.dtype,
+    line = {"phase": "lm_serve", "arch": cfg.name, "step": "sdpa_yardstick", "S": S,
+            "dtype": cfg.dtype,
             "heads": [cfg.n_heads, cfg.n_kv], "head_dim": cfg.head_dim,
             "flash_ms": flash_ms, "sdpa_ms": sdpa_ms, "max_abs_diff": diff,
             "bound_ms": max(bytes_ms, ops_ms),
@@ -1664,12 +1856,13 @@ def lm_sdpa_yardstick(cfg, S, gen) -> dict:
     return line
 
 
-def phase_lm_serve(seed: int, spec=LM_SERVE) -> list:
-    """The dense decoder's serving path (``repro_torch.models``,
+def phase_lm_serve(seed: int, spec: dict) -> list:
+    """One family's serving path (``repro_torch.models``,
     ``repro_torch.serve``) at ``spec["arch"]``'s published size, weights
     from ``seed``: card against CPU and teacher forcing in float32, the
-    continuous batcher against unbatched generation in float32 (tokens
-    exactly equal), then the batcher timed in the config's dtype, and the
+    family's own check (``moe_dispatch``, ``scan``), the continuous batcher
+    against unbatched generation in float32 (tokens exactly equal), then
+    the batcher timed in the config's dtype, and for the dense decoder the
     flash-attention yardstick.  No kernel of the repo is on this path; the
     launch counters are set to 0 before it and read after."""
     import numpy as np
@@ -1680,6 +1873,8 @@ def phase_lm_serve(seed: int, spec=LM_SERVE) -> list:
     from repro_torch.serve.batcher import Request
 
     t_phase = time.perf_counter()
+    gc.collect()  # no earlier phase's garbage in this family's memory figures
+    torch.cuda.empty_cache()
     reset_counts()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1687,9 +1882,13 @@ def phase_lm_serve(seed: int, spec=LM_SERVE) -> list:
     cfg32 = get_config(spec["arch"], smoke=spec["smoke"], dtype="float32")
     cfg = get_config(spec["arch"], smoke=spec["smoke"])
     params32 = model.init_params(cfg32, seed, device=DEVICE)
-    lines = [lm_card_vs_cpu(cfg32, params32, rng, spec),
-             lm_teacher_forcing(cfg32, params32, rng, spec),
-             lm_batching(cfg32, params32, rng, spec)]
+    lines = [lm_card_vs_cpu(cfg32, params32, rng, spec, seed),
+             lm_teacher_forcing(cfg32, params32, rng, spec)]
+    if "moe_dispatch_tokens" in spec:
+        lines.append(lm_moe_dispatch(cfg32, params32, rng, spec))
+    if "scan_len" in spec:
+        lines.append(lm_scan(cfg32, params32, rng, spec))
+    lines.append(lm_batching(cfg32, params32, rng, spec))
     lens = [int(x) for x in rng.integers(spec["serve_prompt"][0], spec["serve_prompt"][1] + 1,
                                          spec["serve_requests"])]
     reqs = [Request(i, rng.integers(0, cfg.vocab, n).astype(np.int32), spec["serve_max_new"])
@@ -1698,19 +1897,22 @@ def phase_lm_serve(seed: int, spec=LM_SERVE) -> list:
     # the same draws in the config's dtype: the float32 weights, cast
     params = model.init_params(cfg, seed, device=DEVICE)
     if not torch.equal(params.lm_head, params32.lm_head.to(params.lm_head.dtype)):
-        raise AssertionError("lm_serve: the bf16 weights are not the float32 weights cast")
+        raise AssertionError(f"lm_serve {cfg.name}: the bf16 weights are not the float32 "
+                             "weights cast")
     del params32
     torch.cuda.empty_cache()
     lines.append(lm_serving(cfg, params, reqs, first32, spec))
     del params
     torch.cuda.empty_cache()
-    gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    lines.append(lm_sdpa_yardstick(cfg, spec["sdpa_len"], gen))
-    lines.append({"phase": "lm_serve", "step": "done", "launches": read_counts(),
-                  "seconds": time.perf_counter() - t_phase})
+    if "sdpa_len" in spec:
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        lines.append(lm_sdpa_yardstick(cfg, spec["sdpa_len"], gen))
+    lines.append({"phase": "lm_serve", "arch": cfg.name, "step": "done",
+                  "launches": read_counts(), "seconds": time.perf_counter() - t_phase})
     emit(lines[-1])
     if any(lines[-1]["launches"].values()):
-        raise AssertionError("lm_serve: a kernel of the MSJ path launched on the serving path")
+        raise AssertionError(f"lm_serve {cfg.name}: a kernel of the MSJ path launched on the "
+                             "serving path")
     return lines
 
 
@@ -1812,7 +2014,9 @@ def main() -> int:
 
     phase_oracle()
     torch.cuda.empty_cache()
-    phase_lm_serve(args.seed)
+    for spec in LM_SERVE:
+        phase_lm_serve(args.seed, spec)
+        torch.cuda.empty_cache()
 
     sources = {
         "probe_bucketed": ("src/repro_torch/kernels/msj_probe/csrc/probe_hash.cu",

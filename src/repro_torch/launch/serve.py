@@ -3,9 +3,14 @@ requests, on the card unless ``--device cpu``.
 
     python -m repro_torch.launch.serve --arch qwen3-0.6b
     python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch olmoe-1b-7b        # MoE
+    python -m repro_torch.launch.serve --arch falcon-mamba-7b    # SSM
+    python -m repro_torch.launch.serve --arch zamba2-7b          # hybrid
 
-The counterpart of ``repro.launch.serve``; weights are random from
-``--seed``.
+The counterpart of ``repro.launch.serve``: every family that serves from
+tokens alone (dense, MoE, SSM, hybrid); like the reference it refuses the
+VLM and enc-dec families, which need frontend embeddings.  Weights are
+random from ``--seed``.
 """
 from __future__ import annotations
 

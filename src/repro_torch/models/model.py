@@ -7,14 +7,18 @@ The counterpart of ``repro.models.model``'s public functions:
 * ``decode_step(cfg, params, cache, tok)``   — serve: one token
 * ``init_cache(cfg, batch, max_len, device=None)``
 
-Only the dense family is ported; every other family raises
-``NotImplementedError`` naming its ROADMAP item.  The reference's GSPMD
-rules (``partition_specs``, ``cache_specs``, ``batch_specs``,
-``input_specs``) wait for the multi-card port (ROADMAP Queue 1 item 8).
+The dense and MoE families (:mod:`transformer`), the SSM family
+(:mod:`ssm_model`) and the hybrid (:mod:`hybrid`) are ported, forward
+only; the VLM and enc-dec families raise ``NotImplementedError`` naming
+their ROADMAP item.  The reference's GSPMD rules (``partition_specs``,
+``cache_specs``, ``batch_specs``, ``input_specs``) wait for the multi-card
+port (ROADMAP Queue 1 item 8).
 
 :func:`params_from_numpy` loads the reference's parameter pytree (numpy
-arrays, layer-stacked ``(L, ...)`` leaves, ``(d_in, d_out)`` matrices) into
-the port's modules; :func:`params_to_numpy` is its inverse.
+arrays, ``(d_in, d_out)`` matrices, layers stacked on leading axes: ``(L,
+...)`` for ``layers`` and ``tail``, ``(g, per, ...)`` for the hybrid's
+``groups``) into the port's modules; :func:`params_to_numpy` is its
+inverse.
 """
 from __future__ import annotations
 
@@ -22,21 +26,26 @@ import numpy as np
 import torch
 
 from repro_torch.core.relation import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, ssm_model, transformer
 
 #: the ROADMAP item that ports each family still missing
 NOT_PORTED = {
-    "moe": transformer.MOE_ITEM,
-    "ssm": "ROADMAP Queue 1 item 6b (SSM: models/ssm.py, models/ssm_model.py)",
-    "hybrid": "ROADMAP Queue 1 item 6c (hybrid: models/hybrid.py)",
     "vlm": "ROADMAP Queue 1 item 6d (vlm: the stub vision frontend)",
     "audio": "ROADMAP Queue 1 item 6e (enc-dec: models/encdec.py)",
 }
 
+#: each ported family's module and the module class holding its parameters
+_FAMILIES = {
+    "dense": (transformer, transformer.Transformer),
+    "moe": (transformer, transformer.Transformer),
+    "ssm": (ssm_model, ssm_model.SSMModel),
+    "hybrid": (hybrid, hybrid.Hybrid),
+}
+
 
 def _mod(cfg):
-    if cfg.family == "dense":
-        return transformer
+    if cfg.family in _FAMILIES:
+        return _FAMILIES[cfg.family][0]
     if cfg.family in NOT_PORTED:
         raise NotImplementedError(
             f"the {cfg.family} family ({cfg.name}) is not ported yet: {NOT_PORTED[cfg.family]}"
@@ -79,38 +88,53 @@ def _flatten(tree, prefix="") -> dict:
     return out
 
 
-def _tree_name(name: str) -> tuple[str, int | None]:
-    """A module parameter's name -> (the reference's leaf path, layer index):
-    ``layers.3.attn.wq`` -> (``layers.attn.wq``, 3)."""
+def _tree_name(name: str) -> tuple[str, tuple[int, ...]]:
+    """A module parameter's name -> (the reference's leaf path, its index
+    on the leaf's stacked axes): ``layers.3.attn.wq`` -> (``layers.attn.wq``,
+    (3,)); ``groups.2.5.mamba.D`` -> (``groups.mamba.D``, (2, 5));
+    ``shared.down`` -> (``shared.down``, ())."""
     parts = name.split(".")
-    if parts[0] == "layers":
-        return ".".join([parts[0], *parts[2:]]), int(parts[1])
-    return name, None
+    return (".".join(p for p in parts if not p.isdigit()),
+            tuple(int(p) for p in parts if p.isdigit()))
+
+
+def _stacks(params) -> dict:
+    """Each leaf path -> the shape of its stacked axes, from the modules'
+    indices (``(L,)`` for ``layers``, ``(g, per)`` for ``groups``)."""
+    shapes: dict = {}
+    for name, _ in params.named_parameters():
+        path, index = _tree_name(name)
+        top = shapes.get(path, (0,) * len(index))
+        shapes[path] = tuple(max(t, i + 1) for t, i in zip(top, index))
+    return shapes
 
 
 def params_from_numpy(cfg, tree: dict, device=None, dtype=None):
     """Load the reference's parameter pytree into the port's modules on
     ``device`` (the card unless ``device="cpu"``), stored in ``dtype``
     (default ``cfg.dtype``: cast once here, which gives the values the
-    reference's cast at each use gives).  Leaves are anything
+    reference's cast at each use gives; the SSM's ``A_log`` and ``dt_bias``,
+    which the reference uses uncast, stay float32).  Leaves are anything
     ``np.asarray`` takes; every leaf must be used and every parameter
     given, at its exact shape."""
     device = resolve_device(device)
-    mod = _mod(cfg)
-    params = mod.Transformer(cfg, device=device, dtype=dtype or mod.compute_dtype(cfg))
+    _mod(cfg)
+    params = _FAMILIES[cfg.family][1](cfg, device=device,
+                                      dtype=dtype or transformer.compute_dtype(cfg))
+    stacks = _stacks(params)
     flat = _flatten(tree)
     used = set()
     with torch.no_grad():
         for name, p in params.named_parameters():
-            path, layer = _tree_name(name)
+            path, index = _tree_name(name)
             if path not in flat:
                 raise KeyError(f"the parameter tree has no leaf {path!r} for {name}")
             a = np.asarray(flat[path], dtype=np.float32)
-            if layer is not None:
-                if a.shape[0] != cfg.n_layers:
-                    raise ValueError(f"{path}: {a.shape[0]} layers stacked, config has "
-                                     f"{cfg.n_layers}")
-                a = a[layer]
+            if index:
+                if a.shape[:len(index)] != stacks[path]:
+                    raise ValueError(f"{path}: {a.shape[:len(index)]} layers stacked, the "
+                                     f"model has {stacks[path]}")
+                a = a[index]
             if tuple(a.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: shape {a.shape}, expected {tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(a)))
@@ -123,18 +147,21 @@ def params_from_numpy(cfg, tree: dict, device=None, dtype=None):
 
 def params_to_numpy(params) -> dict:
     """The inverse of :func:`params_from_numpy`: the reference's pytree of
-    float32 numpy arrays, layers stacked on the leading axis."""
+    float32 numpy arrays, layers stacked on the leading axes."""
     flat: dict = {}
-    stacks: dict = {}
+    stacked: dict = {}
     for name, p in params.named_parameters():
-        path, layer = _tree_name(name)
+        path, index = _tree_name(name)
         a = p.detach().to("cpu", torch.float32).numpy()
-        if layer is None:
-            flat[path] = a
+        if index:
+            stacked.setdefault(path, {})[index] = a
         else:
-            stacks.setdefault(path, {})[layer] = a
-    for path, per_layer in stacks.items():
-        flat[path] = np.stack([per_layer[i] for i in range(len(per_layer))])
+            flat[path] = a
+    for path, shape in _stacks(params).items():
+        if shape:
+            parts = stacked[path]
+            flat[path] = np.stack([parts[i] for i in np.ndindex(*shape)]).reshape(
+                shape + parts[(0,) * len(shape)].shape)
     tree: dict = {}
     for path, a in flat.items():
         node = tree

@@ -1,4 +1,4 @@
-"""Decoder-only transformer, dense family: the serving path.
+"""Decoder-only transformer, dense and MoE families: the serving path.
 
 The counterpart of ``repro.models.transformer``.  Where the reference
 stacks the layers' parameters on a leading ``L`` axis and scans over
@@ -8,9 +8,10 @@ them, the port holds one :class:`DecoderLayer` module per layer and loops
 ``cfg.dtype`` at each use as in the reference; a model whose weights were
 cast once when they were loaded skips those casts.  Logits are float32.
 
-The MoE FFN (``_ffn`` of a ``moe`` config), the chunked cross-entropy
-(``ce_loss``) and ``loss_fn`` wait for their slices and raise
-``NotImplementedError`` naming their ROADMAP item.
+A ``moe`` config's layers hold an :class:`~repro_torch.models.moe.MoE` in
+place of the MLP (``_ffn`` dispatches on ``cfg.moe_impl``).  The chunked
+cross-entropy (``ce_loss``) and ``loss_fn`` wait for the training slice
+and raise ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.relation import resolve_device
-from repro_torch.models import kvcache
+from repro_torch.models import kvcache, moe
 from repro_torch.models.layers import (
     Attention,
     attention,
@@ -30,7 +31,6 @@ from repro_torch.models.layers import (
     swiglu,
 )
 
-MOE_ITEM = "ROADMAP Queue 1 item 6a (MoE: models/moe.py)"
 TRAIN_ITEM = "ROADMAP Queue 1 item 6f (training)"
 
 
@@ -59,18 +59,19 @@ class MLP(nn.Module):
 
 class DecoderLayer(nn.Module):
     """One layer's parameters, named as the reference's layer dict:
-    ``ln1``, ``ln2``, ``attn`` and ``mlp``."""
+    ``ln1``, ``ln2``, ``attn`` and ``mlp`` (``moe`` for a MoE config)."""
 
     def __init__(self, cfg, *, device=None, dtype=torch.float32):
         super().__init__()
-        if cfg.family == "moe":
-            raise NotImplementedError(f"MoE layers are not ported yet: {MOE_ITEM}")
         self.ln1 = _param(cfg.d_model, device=device, dtype=dtype)
         self.ln2 = _param(cfg.d_model, device=device, dtype=dtype)
         self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim,
                               qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
                               device=device, dtype=dtype)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, device=device, dtype=dtype)
+        if cfg.family == "moe":
+            self.moe = moe.MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, device=device, dtype=dtype)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, device=device, dtype=dtype)
 
 
 class Transformer(nn.Module):
@@ -98,9 +99,12 @@ def init_layer(lp: DecoderLayer, gen: torch.Generator) -> DecoderLayer:
     with torch.no_grad():
         lp.ln1.fill_(1.0)
         lp.ln2.fill_(1.0)
-        for name in ("w1", "w3", "w2"):
-            w = getattr(lp.mlp, name)
-            w.copy_(dense_init(gen, *w.shape, device=w.device))
+        if hasattr(lp, "moe"):
+            moe.init_moe(lp.moe, gen)
+        else:
+            for name in ("w1", "w3", "w2"):
+                w = getattr(lp.mlp, name)
+                w.copy_(dense_init(gen, *w.shape, device=w.device))
     return lp
 
 
@@ -116,11 +120,16 @@ def init_params(cfg, seed: int = 0, *, device=None, dtype=None) -> Transformer:
     model = Transformer(cfg, device=device, dtype=dtype)
     for lp in model.layers:
         init_layer(lp, gen)
+    return init_head(model, gen)
+
+
+def init_head(model, gen: torch.Generator):
+    """Every family's ends, drawn after its layers: unit ``final_norm``,
+    normal(0, 0.02) ``lm_head`` ``(d, V)`` and ``embed`` ``(V, d)``."""
     with torch.no_grad():
         model.final_norm.fill_(1.0)
-        model.lm_head.copy_(dense_init(gen, cfg.d_model, cfg.vocab, device=device))
-        model.embed.copy_(torch.randn((cfg.vocab, cfg.d_model), generator=gen,
-                                      device=device) * 0.02)
+        for w in (model.lm_head, model.embed):
+            w.copy_(torch.randn(w.shape, generator=gen, device=w.device) * 0.02)
     return model
 
 
@@ -131,7 +140,7 @@ def init_params(cfg, seed: int = 0, *, device=None, dtype=None) -> Transformer:
 
 def _ffn(cfg, lp: DecoderLayer, h):
     if cfg.family == "moe":
-        raise NotImplementedError(f"the MoE FFN is not ported yet: {MOE_ITEM}")
+        return moe.moe_ffn(lp.moe, h, cfg.top_k, cfg.moe_impl, cfg.capacity_factor)
     m = lp.mlp
     return swiglu(h, m.w1.to(h.dtype), m.w3.to(h.dtype), m.w2.to(h.dtype))
 

@@ -2,7 +2,7 @@
 
 The counterpart of ``repro.serve.batcher``.  Maintains ``max_batch``
 decode slots; finished or empty slots are refilled from the request queue
-at step boundaries (prefill for one request, then its KV rows are copied
+at step boundaries (prefill for one request, then its cache rows are copied
 into the batch cache).  The decode step always runs at the full batch
 width: every slot's clock advances, active or not, and a slot's stale
 tail is masked by its own clock, so the batched tokens equal the
@@ -89,13 +89,15 @@ class Batcher:
 
 def _copy_slot(batch_cache: dict, single_cache: dict, slot: int) -> dict:
     """Copy a single-request cache (batch 1) into batch slot ``slot``, in
-    place: the attention ``k``/``v`` have their batch on dim 1 and ``len``
-    is the per-slot clock.  (The reference's rule for the hybrid family's
-    stacked ``conv``/``ssm`` leaves comes with that family.)"""
+    place, by the reference's rule: ``len`` is the per-slot clock; the
+    batch axis is dim 2 for the hybrid's grouped ``conv``/``ssm`` leaves
+    (``(g, per, B, ...)``, ndim ≥ 5) and dim 1 for every other leaf."""
     for name, big in batch_cache.items():
         small = single_cache[name]
         if name == "len":
             big[slot] = small[0]
+        elif big.ndim >= 5 and name in ("conv", "ssm"):
+            big[:, :, slot:slot + 1] = small
         else:
             big[:, slot:slot + 1] = small
     return batch_cache

@@ -2,8 +2,9 @@
 behind the bucketed and the all-pairs probe; bloom build, pack and probe)
 against its plain torch version and its oracle, and MSJ runs on the card
 (default, with the bloom prefilter, with the all-pairs probe) against the
-same runs on the CPU, and the dense decoder's serving path on the card
-against the CPU (no kernel of the repo is on it).  They need a CUDA
+same runs on the CPU, and the serving path of the dense, MoE, SSM and
+hybrid decoders on the card against the CPU (no kernel of the repo is on
+it).  They need a CUDA
 device and skip without one; on a machine with a card run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -380,6 +381,17 @@ def test_dense_serving_on_card_equals_cpu(cuda, arch):
     the CPU, float32 with TF32 off, same weights: within 1e-4 × max |logit|
     (summation order only); the batcher's tokens equal unbatched
     generation's on the card, exactly."""
+    _serving_on_card_equals_cpu(cuda, arch)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "falcon-mamba-7b", "zamba2-7b"])
+def test_family_serving_on_card_equals_cpu(cuda, arch):
+    """The same for the MoE, SSM and hybrid families at SMOKE size (a
+    31-token prompt; zamba2's 64-slot shared-attention window)."""
+    _serving_on_card_equals_cpu(cuda, arch)
+
+
+def _serving_on_card_equals_cpu(cuda, arch):
     from repro_torch.configs import get_config
     from repro_torch.models import model
     from repro_torch.serve.batcher import Batcher, Request

@@ -48,17 +48,20 @@ def t(a, dtype=None):
 
 
 def reference_tree(cfg_r, seed):
-    """The reference's params, with norms, biases and qk-norms redrawn."""
+    """The reference's params, with norms, biases, qk-norms and the SSM
+    blocks' constant leaves (``D``, ``dt_bias``, ``A_log``) redrawn."""
     tree = jax.tree.map(lambda a: np.array(a, np.float32),
                         rmodel.init_params(cfg_r, jax.random.PRNGKey(seed)))
     rng = np.random.default_rng(seed)
 
     def redraw(path, a):
         name = path[-1].key
-        if name in ("ln1", "ln2", "final_norm", "q_norm", "k_norm"):
+        if name in ("ln1", "ln2", "ln", "final_norm", "q_norm", "k_norm", "norm_w", "D"):
             return (1.0 + 0.2 * rng.standard_normal(a.shape)).astype(np.float32)
-        if name in ("bq", "bk", "bv"):
+        if name in ("bq", "bk", "bv", "conv_b"):
             return (0.05 * rng.standard_normal(a.shape)).astype(np.float32)
+        if name in ("dt_bias", "A_log"):
+            return (a + 0.5 * rng.standard_normal(a.shape)).astype(np.float32)
         return a
 
     return jax.tree_util.tree_map_with_path(redraw, tree)
@@ -338,18 +341,23 @@ def test_init_params():
     jax.tree.map(lambda r, m: np.testing.assert_equal(np.shape(r), np.shape(m)), ref, tree)
 
 
-def test_entry_points_need_a_card(monkeypatch, zoo):
-    _, cfg, tree, _, _ = zoo["qwen3-0.6b"]
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "olmoe-1b-7b", "falcon-mamba-7b", "zamba2-7b"])
+def test_entry_points_need_a_card(monkeypatch, arch):
+    cfg = configs.get_config(arch, smoke=True)
+    tree = model.params_to_numpy(model.init_params(cfg, 0, device="cpu"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: model.init_params(cfg, 0),
                  lambda: model.params_from_numpy(cfg, tree),
                  lambda: model.init_cache(cfg, 1, 8)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
-    assert model.init_cache(cfg, 1, 8, device="cpu")["k"].device.type == "cpu"
+    assert all(v.device.type == "cpu" for v in model.init_cache(cfg, 1, 8, device="cpu").values())
+    params = model.params_from_numpy(cfg, tree, device="cpu")
+    assert params.device.type == "cpu"
 
 
-@pytest.mark.parametrize("arch", [a for a in configs.list_archs() if a not in DENSE])
+@pytest.mark.parametrize("arch", [a for a in configs.list_archs()
+                                  if configs.get_config(a).family in model.NOT_PORTED])
 def test_other_families_name_their_roadmap_item(arch):
     cfg = configs.get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
@@ -362,5 +370,8 @@ def test_training_pieces_name_their_roadmap_item(zoo):
     _, cfg, _, _, tp = zoo["qwen3-0.6b"]
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6f"):
         model.loss_fn(cfg, tp, {"tokens": t(np.zeros((1, 4), np.int32))})
+    for arch in ("falcon-mamba-7b", "zamba2-7b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6f"):
+            model.loss_fn(configs.get_config(arch, smoke=True), None, {})
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6f"):
         transformer.ce_loss(cfg, None, None, None, None)

@@ -3,8 +3,9 @@
 
 Greedy generation and the continuous batcher against ``repro``'s on the
 CPU, float32, with the reference's parameters carried across by
-``params_from_numpy``: tokens must be exactly equal.  The batcher's case
-is the reference's own (``tests/test_serving.py``); the launcher runs with
+``params_from_numpy``: tokens must be exactly equal, for the dense
+decoder and for the MoE, SSM and hybrid families.  The batcher's cases are
+the reference's own (``tests/test_serving.py``); the launcher runs with
 ``--smoke --device cpu``."""
 import subprocess
 import sys
@@ -28,6 +29,7 @@ from repro_torch.serve import batcher  # noqa: E402
 from repro_torch.serve.serve_step import greedy_generate, make_decode, make_prefill  # noqa: E402
 
 SRC = Path(__file__).resolve().parents[1] / "src"
+FAMILIES = ["olmoe-1b-7b", "falcon-mamba-7b", "zamba2-7b"]  # MoE, SSM, hybrid
 
 
 @pytest.fixture(scope="module")
@@ -70,6 +72,31 @@ def test_batcher_matches_reference_batcher(qwen3):
         assert rt.out == [int(x) for x in rr.out]
         batch = {"tokens": torch.as_tensor(rt.prompt[None, :])}
         assert greedy_generate(cfg_t, tp, batch, steps=5, max_len=64)[0].tolist() == rt.out
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_batcher_matches_reference_batcher(arch):
+    """3 requests through 2 slots for each family at SMOKE size: the port's
+    batcher gives the reference batcher's tokens and its own unbatched
+    generation's.  zamba2's 70-token prompt passes its 64-slot window."""
+    cfg_r = rconfigs.get_config(arch, smoke=True, dtype="float32")
+    cfg_t = configs.get_config(arch, smoke=True, dtype="float32")
+    rp = rmodel.init_params(cfg_r, jax.random.PRNGKey(1))
+    tp = model.params_from_numpy(cfg_t, jax.tree.map(np.asarray, rp), device="cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg_r.vocab, (n,)).astype(np.int32) for n in (5, 70, 8)]
+    ref = rbatcher.Batcher(cfg_r, rp, max_batch=2, max_len=96)
+    mine = batcher.Batcher(cfg_t, tp, max_batch=2, max_len=96)
+    reqs_r = [rbatcher.Request(i, p, 4) for i, p in enumerate(prompts)]
+    reqs_t = [batcher.Request(i, p, 4) for i, p in enumerate(prompts)]
+    for b, reqs in ((ref, reqs_r), (mine, reqs_t)):
+        for r in reqs:
+            b.submit(r)
+        b.run()
+    for rr, rt in zip(reqs_r, reqs_t):
+        assert rt.done and rt.out == [int(x) for x in rr.out]
+        batch = {"tokens": torch.as_tensor(rt.prompt[None, :])}
+        assert greedy_generate(cfg_t, tp, batch, steps=4, max_len=96)[0].tolist() == rt.out
 
 
 def test_batcher_more_requests_than_slots_with_bias_and_eos():
@@ -116,6 +143,30 @@ def test_copy_slot_matches_reference():
     assert cfg_r.n_layers == cfg_t.n_layers == 2
 
 
+def test_copy_slot_matches_reference_on_hybrid_leaves():
+    """zamba2's cache: the grouped ``conv``/``ssm`` leaves have their batch
+    on dim 2, the KV and tail leaves on dim 1."""
+    from repro.models import hybrid as rhybrid
+
+    cfg = rconfigs.get_config("zamba2-7b", smoke=True, dtype="float32")
+    rng = np.random.default_rng(5)
+
+    def draw(batch):
+        shapes = jax.tree.map(np.shape, rhybrid.init_cache(cfg, batch, 16))
+        out = {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+        out["len"] = rng.integers(0, 9, shapes["len"]).astype(np.int32)
+        return out
+
+    big, small = draw(3), draw(1)
+    assert big["conv"].ndim == 5 and big["ssm"].ndim == 6 and big["ssm_tail"].ndim == 5
+    want = rbatcher._copy_slot({k: jnp.asarray(v) for k, v in big.items()},
+                               {k: jnp.asarray(v) for k, v in small.items()}, 2)
+    got = batcher._copy_slot({k: torch.as_tensor(v) for k, v in big.items()},
+                             {k: torch.as_tensor(v) for k, v in small.items()}, 2)
+    for k in big:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+
+
 def test_serve_steps_run_in_inference_mode(qwen3):
     _, cfg, _, tp = qwen3
     cache, logits = make_prefill(cfg, 16)(tp, {"tokens": torch.zeros((1, 4), dtype=torch.int64)})
@@ -124,8 +175,9 @@ def test_serve_steps_run_in_inference_mode(qwen3):
     assert cache["len"].tolist() == [5] and logits.shape == (1, cfg.vocab)
 
 
-def test_launcher_smoke_on_the_cpu(capsys):
-    launch_serve.main(["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu", "--requests", "3",
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", *FAMILIES])
+def test_launcher_smoke_on_the_cpu(capsys, arch):
+    launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "3",
                        "--max-batch", "2", "--max-len", "32", "--max-new", "4"])
     out = capsys.readouterr().out
     assert "served 3 requests / 12 tokens" in out and "on cpu" in out
@@ -144,5 +196,6 @@ def test_launcher_module_and_card_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_serve.main(["--arch", "qwen3-0.6b", "--smoke"])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6a"):
-        launch_serve.main(["--arch", "mixtral-8x7b", "--smoke", "--device", "cpu"])
+    for arch in ("phi-3-vision-4.2b", "seamless-m4t-medium"):  # as the reference refuses
+        with pytest.raises(SystemExit, match="serving needs frontend embeds"):
+            launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
