@@ -107,12 +107,41 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    trace of three decode waves and the share of first tokens equal to
    float32's.  ``sdpa_yardstick`` (qwen3): the port's flash attention and
    ``scaled_dot_product_attention`` at 2048 tokens (the yardstick is never
-   on the path).  No kernel of the repo is on these paths: the launch
-   counters, set to 0 before each family, stay 0.
+   on the path).  The stub-frontend families follow, whole: phi-3-vision-4.2b
+   (VLM, 576 patch embeddings per request) and seamless-m4t-medium (enc-dec,
+   512 frames), each with ``card_vs_cpu`` (phi-3-vision's depth cut to 2
+   layers), ``teacher_forcing`` (S = 1021 text tokens after the
+   embeddings), ``batching`` (``greedy_generate`` on 4 requests against
+   each alone, float32, tokens equal) and ``serve``: bf16
+   ``greedy_generate`` over two batches of 8 requests (text 512 and 1,472
+   tokens after the patches; 256 and 1,024 after the frames), 64 new
+   tokens each, prefill and every decode step timed against the step's
+   bytes (weights, valid self K/V, the enc-dec's cross K/V), with a
+   profiler summary of three decode steps.  No kernel of the repo is on
+   these paths: the launch counters, set to 0 before each family, stay 0.
+10. ``train``  — the training path.  ``pipeline``: the reference's Keep
+   query (three negated semi-joins and one positive) over a 2**24-document
+   crawl shard (``data.synthetic.corpus_relations``), P=16, 1-ROUND,
+   through ``data.pipeline.filter_corpus`` on the card with every launch
+   counter set to 0 just before: the probe kernel must launch (table
+   builds and probes), bloom must not; kept ids equal to a numpy oracle,
+   outputs and per-job counters bit-identical to ``probe_backend="sorted"``.
+   ``grad_card_vs_cpu``: qwen3-0.6b at full width, 2 layers, float32: loss
+   and every gradient ≤ 1e-3 of each leaf's max.  ``flash_grad``: the flash
+   backward at 2048 tokens against dense autograd (≤ 1e-3), then its
+   forward + backward timed beside ``scaled_dot_product_attention``'s.
+   ``train``: qwen3-0.6b whole, float32 parameters and moments, bf16
+   compute, full remat, 8 × 4096 tokens in 2 microbatches per step, batches
+   seeded from the kept ids: step ms, tokens/s, share of the bf16 peak,
+   peak bytes; step-1 loss within 0.1 of ln(vocab).  ``restart``:
+   ``run_train_loop`` crashed at step 3 (checkpoints every 2 steps into a
+   temporary directory, removed after), resumed: the loaded state bit for
+   bit the saved one, resumed losses within 1e-3 of an uninterrupted run.
 
-Then a ``kernels`` JSON line, the raw ``nvidia-smi`` name/power line, and
-as the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
-device it exits 1 before printing any result.
+Then a ``kernels`` JSON line (``launches`` count the pipeline's too), the
+raw ``nvidia-smi`` name/power line, and as the last line ``{"ok": true,
+"device": {...}}``.  Without a CUDA device it exits 1 before printing any
+result.
 """
 from __future__ import annotations
 
@@ -1403,6 +1432,15 @@ LM_SERVE = [
     {**_SERVE_STEPS, "arch": "zamba2-7b", "smoke": False,
      "check_layers": 7,  # one group of 6 and one tail layer
      "serve_requests": 16, "serve_max_new": 64, "serve_max_batch": 8},
+    # the stub-frontend families serve through greedy_generate (the
+    # reference's Batcher and serve launcher take tokens only): 576 patch
+    # embeddings (phi-3-vision's published frontend) or 512 frames per request
+    {**_SERVE_STEPS, "arch": "phi-3-vision-4.2b", "smoke": False, "check_layers": 2,
+     "batch_requests": 4, "batch_prompt": 97, "serve_batch": 8, "serve_text": (512, 1472),
+     "serve_max_new": 64},
+    {**_SERVE_STEPS, "arch": "seamless-m4t-medium", "smoke": False, "check_layers": None,
+     "frames": 512, "batch_requests": 4, "batch_prompt": 97, "serve_batch": 8,
+     "serve_text": (256, 1024), "serve_max_new": 64},
 ]
 CARD_VS_CPU_TOL = 1e-3  # max |Δlogit| / max |logit|, float32 without TF32
 TEACHER_FORCING_TOL = 2e-3  # the reference's own bound (tests/test_models.py)
@@ -1450,12 +1488,15 @@ def lm_card_vs_cpu(cfg, params, rng, spec, seed) -> dict:
         params = model.init_params(cfg, seed, device=DEVICE)
     S, n_dec = spec["check_prompt"], spec["check_decode"]
     toks = rng.integers(0, cfg.vocab, (1, S + n_dec))
+    emb = frontend_embeds(cfg, spec, 1, rng, "cpu")
+    max_len = spec["check_max_len"] + n_prefix(cfg, emb)
     cpu = model.params_from_numpy(cfg, model.params_to_numpy(params), device="cpu")
     outs = {}
     for where, p in (("card", params), ("cpu", cpu)):
         with torch.inference_mode():
             t = torch.as_tensor(toks, device=p.device)
-            cache, logits = model.prefill(cfg, p, {"tokens": t[:, :S]}, spec["check_max_len"])
+            batch = with_embeds({"tokens": t[:, :S]}, emb, p.device)
+            cache, logits = model.prefill(cfg, p, batch, max_len)
             seq = [logits]
             for i in range(n_dec):
                 cache, logits = model.decode_step(cfg, p, cache, t[:, S + i:S + i + 1])
@@ -1465,6 +1506,7 @@ def lm_card_vs_cpu(cfg, params, rng, spec, seed) -> dict:
     err = rel_err(outs["cpu"], outs["card"])
     line = {"phase": "lm_serve", "arch": cfg.name, "step": "card_vs_cpu", "dtype": cfg.dtype,
             "n_layers": cfg.n_layers, "reduced": reduced, "prompt": S, "decode_steps": n_dec,
+            "frontend_positions": None if emb is None else emb.shape[1],
             "rel_err": err, "tol": CARD_VS_CPU_TOL,
             "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
             "seconds": time.perf_counter() - t0}
@@ -1475,17 +1517,45 @@ def lm_card_vs_cpu(cfg, params, rng, spec, seed) -> dict:
     return line
 
 
-def last_hidden(cfg, params, tokens):
+def frontend_embeds(cfg, spec, B, rng, device):
+    """The stub frontend's embeddings for ``B`` requests, float32 draws
+    from ``rng`` (normal, std 0.1, as the reference's synthetic batches):
+    ``frontend_tokens`` patches for a VLM, ``spec["frames"]`` frames for
+    the enc-dec; None for a token-only family."""
+    import torch
+
+    if cfg.family == "vlm":
+        n = cfg.frontend_tokens
+    elif cfg.family == "audio":
+        n = spec["frames"]
+    else:
+        return None
+    x = rng.normal(0, 0.1, (B, n, cfg.d_model)).astype("float32")
+    return torch.as_tensor(x, device=device)
+
+
+def n_prefix(cfg, emb) -> int:
+    """Positions the frontend adds in front of the decoder's KV cache."""
+    return emb.shape[1] if cfg.family == "vlm" else 0
+
+
+def with_embeds(batch, emb, device):
+    return batch if emb is None else {**batch, "embeds": emb.to(device)}
+
+
+def last_hidden(cfg, params, tokens, emb=None):
     """The family's full-sequence forward, final hidden state of the last
     position."""
-    from repro_torch.models import hybrid, ssm_model, transformer
+    from repro_torch.models import encdec, hybrid, ssm_model, transformer
 
     batch = {"tokens": tokens}
     if cfg.family == "ssm":
         return ssm_model.forward(cfg, params, batch)[:, -1]
     if cfg.family == "hybrid":
         return hybrid.forward(cfg, params, batch)[:, -1]
-    return transformer.forward(cfg, params, batch)[0][:, -1]
+    if cfg.family == "audio":
+        return encdec.decode_full(cfg, params, tokens, encdec.encode(cfg, params, emb))[0][:, -1]
+    return transformer.forward(cfg, params, with_embeds(batch, emb, tokens.device))[0][:, -1]
 
 
 def lm_teacher_forcing(cfg, params, rng, spec) -> dict:
@@ -1497,14 +1567,18 @@ def lm_teacher_forcing(cfg, params, rng, spec) -> dict:
     t0 = time.perf_counter()
     S = spec["tf_len"]
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, S)), device=params.device)
+    emb = frontend_embeds(cfg, spec, 1, rng, params.device)
     with torch.inference_mode():
-        cache, _ = model.prefill(cfg, params, {"tokens": toks[:, :-1]}, S)
+        cache, _ = model.prefill(cfg, params, with_embeds({"tokens": toks[:, :-1]}, emb,
+                                                          params.device),
+                                 S + n_prefix(cfg, emb))
         _, dec = model.decode_step(cfg, params, cache, toks[:, -1:])
         del cache
-        ref = last_hidden(cfg, params, toks) @ params.lm_head
+        ref = last_hidden(cfg, params, toks, emb) @ params.lm_head
     err = rel_err(ref, dec)
     line = {"phase": "lm_serve", "arch": cfg.name, "step": "teacher_forcing",
             "dtype": cfg.dtype, "n_layers": cfg.n_layers, "S": S, "S_is_prime": is_prime(S),
+            "frontend_positions": None if emb is None else emb.shape[1],
             "rel_err": err, "tol": TEACHER_FORCING_TOL, "seconds": time.perf_counter() - t0}
     emit(line)
     if not err <= TEACHER_FORCING_TOL:
@@ -1733,7 +1807,10 @@ def lm_serving(cfg, params, reqs, first32, spec) -> dict:
     if not all(r.done and len(r.out) == r.max_new for r in reqs):
         raise AssertionError(f"lm_serve {cfg.name}: a request did not finish")
     peak = torch.cuda.max_memory_allocated()
-    profile = lm_decode_profile(params, b, decode)
+    def wave():
+        b.cache, _ = decode(params, b.cache, b.tokens)
+
+    profile = device_profile(wave)
     deciles = []
     for part in np.array_split(np.array(sorted(prefills)), 10):
         if len(part):
@@ -1785,10 +1862,138 @@ def lm_serving(cfg, params, reqs, first32, spec) -> dict:
     return line
 
 
-def lm_decode_profile(params, b, decode, waves: int = 3, top: int = 8) -> dict:
-    """``torch.profiler`` over ``waves`` full-width decode waves on the
-    batcher's final cache: device time by kernel per wave, and the device's
-    busy share of the traced window (its kernels' time over its wall)."""
+def lm_greedy_batching(cfg, params, rng, spec) -> dict:
+    """``greedy_generate`` on a batch of ``batch_requests`` requests (each
+    with its own frontend embeddings and tokens) against each request
+    alone: tokens exactly equal (the frontend families' counterpart of the
+    batcher check; the reference's Batcher takes tokens only)."""
+    import torch
+
+    from repro_torch.serve.serve_step import greedy_generate
+
+    t0 = time.perf_counter()
+    B, S, new = spec["batch_requests"], spec["batch_prompt"], spec["batch_max_new"]
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device=params.device)
+    emb = frontend_embeds(cfg, spec, B, rng, params.device)
+    max_len = S + new + n_prefix(cfg, emb)
+    both = greedy_generate(cfg, params, {"tokens": toks, "embeds": emb}, steps=new,
+                           max_len=max_len).tolist()
+    for i in range(B):
+        alone = greedy_generate(cfg, params, {"tokens": toks[i:i + 1], "embeds": emb[i:i + 1]},
+                                steps=new, max_len=max_len)[0].tolist()
+        if alone != both[i]:
+            raise AssertionError(f"lm_serve {cfg.name}: request {i} batched {both[i]}, "
+                                 f"alone {alone}")
+    line = {"phase": "lm_serve", "arch": cfg.name, "step": "batching", "dtype": cfg.dtype,
+            "requests": B, "prompt": S, "frontend_positions": emb.shape[1], "max_new": new,
+            "via": "greedy_generate", "tokens_equal": True, "seconds": time.perf_counter() - t0}
+    emit(line)
+    return line
+
+
+def lm_greedy_serving(cfg, params, rng, spec) -> dict:
+    """Greedy generation in the config's own dtype over one batch of
+    ``serve_batch`` requests per text length of ``serve_text``, each with
+    its frontend embeddings, ``serve_max_new`` tokens each; prefill and
+    every decode step timed on the host clock around synchronized work.
+
+    A decode step's bound is the bytes it must move over HBM: the weights
+    (the embedding rows gathered, not the table), every slot's valid self
+    K/V and one position written, the enc-dec's cross K/V (read whole at
+    every step) and the logits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.serve_step import make_decode, make_prefill
+
+    t_step = time.perf_counter()
+    dev = params.device
+    B, new = spec["serve_batch"], spec["serve_max_new"]
+    weight_bytes = sum(p.numel() * p.element_size() for n, p in params.named_parameters()
+                       if n != "embed")
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
+    decode = make_decode(cfg)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    batches, steps = [], []
+    t0 = time.perf_counter()
+    for n_text in spec["serve_text"]:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (B, n_text)), device=dev)
+        emb = frontend_embeds(cfg, spec, B, rng, dev)
+        pre = n_prefix(cfg, emb)
+        torch.cuda.synchronize()
+        tp = time.perf_counter()
+        cache, logits = make_prefill(cfg, pre + n_text + new)(params, {"tokens": toks,
+                                                                       "embeds": emb})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - tp
+        self_kv = [cache[n] for n in ("k", "v", "self_k", "self_v") if n in cache]
+        pos_bytes = sum(t[:, 0, 0].numel() * t.element_size() for t in self_kv)  # one slot
+        cross_bytes = sum(cache[n].numel() * cache[n].element_size()
+                          for n in ("cross_k", "cross_v") if n in cache)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        walls, need = [], []
+        for i in range(new):
+            torch.cuda.synchronize()
+            ts_ = time.perf_counter()
+            cache, logits = decode(params, cache, tok)
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - ts_)
+            valid = pre + n_text + i + 1  # positions read after this step's write
+            need.append(weight_bytes + B * cfg.d_model * params.embed.element_size()
+                        + B * (valid + 1) * pos_bytes + cross_bytes
+                        + logits.numel() * logits.element_size())
+            finite = finite & torch.isfinite(logits).all()
+        steps.extend(zip(walls, need))
+        batches.append({"text_tokens": n_text, "frontend_positions": emb.shape[1],
+                        "prompt_positions": pre + n_text, "prefill_ms": prefill_s * 1e3,
+                        "prefill_tokens_per_s": B * (pre + n_text) / prefill_s,
+                        "decode_ms_per_step_mean": float(np.mean(walls) * 1e3),
+                        "bound_ms_per_step_mean": float(np.mean(need) / HBM_BYTES_PER_S * 1e3),
+                        "cross_kv_bytes": cross_bytes})
+    wall = time.perf_counter() - t0
+    if not bool(finite):
+        raise AssertionError(f"lm_serve {cfg.name}: non-finite logits in the serving run")
+    peak = torch.cuda.max_memory_allocated()
+
+    def step():
+        nonlocal cache
+        cache, _ = decode(params, cache, tok)
+
+    profile = device_profile(step)
+    wave_s = np.array([w for w, _ in steps])
+    bound_s = np.array([n for _, n in steps]) / HBM_BYTES_PER_S
+    generated = len(spec["serve_text"]) * B * new
+    line = {
+        "phase": "lm_serve", "arch": cfg.name, "step": "serve", "card": nvidia_smi(),
+        "dtype": cfg.dtype, "n_layers": cfg.n_layers, "via": "greedy_generate steps",
+        "batch": B, "max_new": new, "batches": batches,
+        "weight_bytes_per_step": weight_bytes, "wall_s": wall,
+        "generated_tokens": generated, "generated_tokens_per_s": generated / wall,
+        "decode": {"steps": len(steps), "tokens_per_s": B * len(steps) / float(wave_s.sum()),
+                   "ms_per_step_mean": float(wave_s.mean() * 1e3),
+                   "ms_per_step_median": float(np.median(wave_s) * 1e3),
+                   "bound_ms_per_step_mean": float(bound_s.mean() * 1e3),
+                   "bound_share": float(bound_s.sum() / wave_s.sum()),
+                   "bound_by": "bytes: weights (embedding rows gathered, not the table) + "
+                               "every slot's valid self K/V + one position written + the "
+                               "cross K/V read whole (enc-dec) + logits"},
+        "prefill_s": sum(b["prefill_ms"] for b in batches) / 1e3,
+        "decode_profile": profile,
+        "allocated_at_start_bytes": at_start, "peak_mem_bytes": peak,
+        "peak_mem_bytes_with_profile": torch.cuda.max_memory_allocated(),
+        "logits_finite": True, "seconds": time.perf_counter() - t_step,
+    }
+    emit(line)
+    return line
+
+
+def device_profile(step, waves: int = 3, top: int = 8) -> dict:
+    """``torch.profiler`` over ``waves`` calls of ``step`` (a full-width
+    decode wave, or a train step): device time by kernel per call, and the
+    device's busy share of the traced window (its kernels' time over its
+    wall)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1797,7 +2002,7 @@ def lm_decode_profile(params, b, decode, waves: int = 3, top: int = 8) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(waves):
-            b.cache, _ = decode(params, b.cache, b.tokens)
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
@@ -1863,8 +2068,11 @@ def phase_lm_serve(seed: int, spec: dict) -> list:
     family's own check (``moe_dispatch``, ``scan``), the continuous batcher
     against unbatched generation in float32 (tokens exactly equal), then
     the batcher timed in the config's dtype, and for the dense decoder the
-    flash-attention yardstick.  No kernel of the repo is on this path; the
-    launch counters are set to 0 before it and read after."""
+    flash-attention yardstick.  The stub-frontend families (VLM, enc-dec)
+    carry their embeddings through every step and serve through
+    ``greedy_generate`` (``lm_greedy_batching``, ``lm_greedy_serving``).
+    No kernel of the repo is on this path; the launch counters are set to
+    0 before it and read after."""
     import numpy as np
     import torch
 
@@ -1884,6 +2092,15 @@ def phase_lm_serve(seed: int, spec: dict) -> list:
     params32 = model.init_params(cfg32, seed, device=DEVICE)
     lines = [lm_card_vs_cpu(cfg32, params32, rng, spec, seed),
              lm_teacher_forcing(cfg32, params32, rng, spec)]
+    if cfg.frontend != "none":
+        lines.append(lm_greedy_batching(cfg32, params32, rng, spec))
+        del params32
+        torch.cuda.empty_cache()
+        params = model.init_params(cfg, seed, device=DEVICE)
+        lines.append(lm_greedy_serving(cfg, params, rng, spec))
+        del params
+        torch.cuda.empty_cache()
+        return lm_serve_done(cfg, lines, t_phase)
     if "moe_dispatch_tokens" in spec:
         lines.append(lm_moe_dispatch(cfg32, params32, rng, spec))
     if "scan_len" in spec:
@@ -1907,12 +2124,445 @@ def phase_lm_serve(seed: int, spec: dict) -> list:
     if "sdpa_len" in spec:
         gen = torch.Generator(device=DEVICE).manual_seed(seed)
         lines.append(lm_sdpa_yardstick(cfg, spec["sdpa_len"], gen))
+    return lm_serve_done(cfg, lines, t_phase)
+
+
+def lm_serve_done(cfg, lines, t_phase) -> list:
     lines.append({"phase": "lm_serve", "arch": cfg.name, "step": "done",
                   "launches": read_counts(), "seconds": time.perf_counter() - t_phase})
     emit(lines[-1])
     if any(lines[-1]["launches"].values()):
         raise AssertionError(f"lm_serve {cfg.name}: a kernel of the MSJ path launched on the "
                              "serving path")
+    return lines
+
+
+# --------------------------------------------------------------------------
+# phase 10: training (the SGF-filtered corpus, then AdamW steps of qwen3)
+# --------------------------------------------------------------------------
+
+#: the ``train`` phase's sizes: the pipeline's crawl shard, the training
+#: config and its batches (qwen3-0.6b at its published config; the batch is
+#: the config's ``train_microbatches`` of 4 sequences of 4096 tokens)
+TRAIN = {"corpus_log2_docs": 24, "P": 16, "strategy": "one_round",
+         "arch": "qwen3-0.6b", "grad_layers": 2, "grad_tokens": 128, "flash_len": 2048,
+         "batch": 8, "seq": 4096, "steps": 4,
+         "restart_batch": 4, "restart_seq": 2048, "restart_steps": 4, "restart_every": 2,
+         "restart_crash_at": 3}
+GRAD_TOL = 1e-3  # max |Δg| / max |g| per leaf, card against CPU, float32 without TF32
+FLASH_GRAD_TOL = 1e-3  # max |Δg| / max |g|, the flash backward against dense autograd
+RESTART_LOSS_TOL = 1e-3  # relative: the card's embedding backward sums with atomics
+#: |step-1 loss - transformer.expected_initial_loss|: ln(V) + σ²/2 with
+#: σ² = d · 0.02² (0.41 for qwen3)
+INIT_LOSS_TOL = 0.1
+
+
+def corpus_oracle(rels):
+    """The Keep query's doc ids by numpy set membership."""
+    import numpy as np
+
+    docs = rels["Docs"]
+    dup, blocked, quality = (rels[k][:, 0] for k in ("Dup", "Blocked", "Quality"))
+    keep = (~np.isin(docs[:, 2], dup) & ~np.isin(docs[:, 3], dup)
+            & ~np.isin(docs[:, 1], blocked) & np.isin(docs[:, 0], quality))
+    return np.sort(docs[keep, 0]).astype(np.int64)
+
+
+def train_pipeline(seed, spec):
+    """The Keep query over a 2**24-document crawl shard on the card
+    through ``data.pipeline.filter_corpus`` (counters set to 0 just
+    before, read just after: the probe kernel must have launched, bloom
+    not), held to a numpy oracle, and the same plan's outputs and per-job
+    counters bit-identical to ``probe_backend="sorted"``.  Returns the
+    kept ids and the line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.relation import db_from_dict
+    from repro_torch.data import pipeline, synthetic
+    from repro_torch.obs.tracer import Tracer
+
+    P, strategy = spec["P"], spec["strategy"]
+    t0 = time.perf_counter()
+    rels = synthetic.corpus_relations(2 ** spec["corpus_log2_docs"], seed=seed)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = corpus_oracle(rels)
+    oracle_s = time.perf_counter() - t0
+    pipeline.filter_corpus(rels, P=P, strategy=strategy, device=DEVICE)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    kept, summary = pipeline.filter_corpus(rels, P=P, strategy=strategy, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not np.array_equal(kept.cpu().numpy(), want):
+        raise AssertionError("train pipeline: the kept ids differ from the numpy oracle")
+    db = db_from_dict(rels, P=P, device=DEVICE)
+    plan = pipeline.plan_for(db, strategy)
+    env_a, rep_a, wall_a = run_plan(db, plan, P, "auto")
+    backends = check_path_kernels("train pipeline", rep_a, launches, False)
+    if any(launches[k] for k in ("bloom_build", "bloom_pack", "bloom_probe")):
+        raise AssertionError(f"train pipeline: a bloom kernel launched: {launches}")
+    env_s, rep_s, wall_s = run_plan(db, plan, P, "sorted")
+    same_outputs(env_a, env_s, ["Keep"])
+    if [r.stats for r in rep_a.records] != [r.stats for r in rep_s.records]:
+        raise AssertionError("train pipeline: auto and sorted counters differ")
+    if not torch.equal(pipeline.kept_ids(env_a["Keep"]), kept):
+        raise AssertionError("train pipeline: filter_corpus and execute_plan differ")
+    del env_a, env_s
+    _, rep_t, wall_t = run_plan(db, plan, P, "auto", tracer=Tracer(trace_sync=True))
+    del db
+    line = {"phase": "train", "step": "pipeline", "card": nvidia_smi(),
+            "docs": len(rels["Docs"]), "relations": {k: list(v.shape) for k, v in rels.items()},
+            "P": P, "strategy": strategy, "kept": int(kept.numel()), "oracle_equal": True,
+            "bit_identical_to_sorted": True, "jobs": summary["jobs"], "msj_backends": backends,
+            "probe_wrapper": "probe_bucketed", "launches": launches, "wall_s": wall,
+            "wall_auto_s": wall_a, "wall_sorted_s": wall_s, "traced_wall_s": wall_t,
+            "phase_s": phase_seconds(rep_t), "bytes_shuffled": summary["bytes_shuffled"],
+            "input_rows": summary["input_rows"],
+            "forward_cap": [r.stats.get("forward_cap") for r in rep_a.records],
+            "peak_mem_bytes": peak, "corpus_s": data_s, "oracle_s": oracle_s}
+    emit(line)
+    return kept, line
+
+
+def grad_tree(params) -> list:
+    return [p.grad.detach().cpu() for p in params.parameters()]
+
+
+def train_grad_card_vs_cpu(seed, spec) -> dict:
+    """qwen3-0.6b at full width, depth cut to ``grad_layers``: loss and
+    every parameter's gradient on the card against the CPU, float32 with
+    TF32 off, the same weights and tokens."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.models import model
+
+    t0 = time.perf_counter()
+    full = get_config(spec["arch"], dtype="float32")
+    cfg = dataclasses.replace(full, n_layers=spec["grad_layers"])
+    card = model.init_params(cfg, seed, device=DEVICE).requires_grad_(True)
+    cpu = model.params_from_numpy(cfg, model.params_to_numpy(card), device="cpu")
+    cpu.requires_grad_(True)
+    out = {}
+    for where, p in (("card", card), ("cpu", cpu)):
+        batch = synthetic.token_batch(cfg, "train", 1, spec["grad_tokens"], 0, seed=seed,
+                                      device=p.device)
+        loss = model.loss_fn(cfg, p, batch)
+        loss.backward()
+        out[where] = (float(loss.detach()), grad_tree(p))
+    names = [n for n, _ in card.named_parameters()]
+    errs = {n: float((g - w).abs().max() / w.abs().max())
+            for n, g, w in zip(names, out["card"][1], out["cpu"][1])}
+    worst = max(errs, key=errs.get)
+    loss_err = abs(out["card"][0] - out["cpu"][0]) / out["cpu"][0]
+    del card, cpu, out
+    line = {"phase": "train", "step": "grad_card_vs_cpu", "arch": cfg.name, "dtype": cfg.dtype,
+            "n_layers": cfg.n_layers, "reduced": {"n_layers": [cfg.n_layers, full.n_layers]},
+            "tokens": spec["grad_tokens"], "loss_rel_err": loss_err, "leaves": len(errs),
+            "worst_leaf": worst, "worst_rel_err": errs[worst], "tol": GRAD_TOL,
+            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    if not (errs[worst] <= GRAD_TOL and loss_err <= GRAD_TOL):
+        raise AssertionError(f"train: card and CPU gradients differ: {line}")
+    return line
+
+
+def train_flash_grad(seed, spec) -> dict:
+    """The flash backward at ``flash_len`` tokens (qwen3's heads, causal)
+    against autograd through a dense masked softmax, float32 on the card;
+    then the flash forward + backward timed in bf16 beside
+    ``scaled_dot_product_attention``'s (the yardstick, never on the path)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.flash import flash_attention
+
+    cfg = get_config(spec["arch"])
+    S, D, Hkv, G = spec["flash_len"], cfg.head_dim, cfg.n_kv, cfg.n_heads // cfg.n_kv
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(dtype).requires_grad_(True)
+
+    q, k, v = rand(1, Hkv, G, S, D), rand(1, Hkv, S, D), rand(1, Hkv, S, D)
+    do = torch.randn((1, Hkv, G, S, D), generator=gen, device=DEVICE)
+    got = torch.autograd.grad(
+        flash_attention(q, k, v, True, 0, 0, cfg.q_chunk, cfg.kv_chunk), (q, k, v), do)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", q, k) / D ** 0.5
+    causal = torch.ones((S, S), dtype=torch.bool, device=DEVICE).tril()
+    o = torch.einsum("bhgqk,bhkd->bhgqd", torch.softmax(s.masked_fill(~causal, -1e30), -1), v)
+    want = torch.autograd.grad(o, (q, k, v), do)
+    errs = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+    del s, o, want, got
+
+    bf = torch.bfloat16
+    qb, kb, vb = (t.detach().to(bf).requires_grad_(True) for t in (q, k, v))
+    dob = do.to(bf)
+    qs, ks, vs = (t.detach().reshape(1, -1, S, D).requires_grad_(True) for t in (qb, kb, vb))
+    dos = dob.reshape(1, -1, S, D)
+
+    def flash():
+        o = flash_attention(qb, kb, vb, True, 0, 0, cfg.q_chunk, cfg.kv_chunk)
+        return torch.autograd.grad(o, (qb, kb, vb), dob)
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+        return torch.autograd.grad(o, (qs, ks, vs), dos)
+
+    torch.cuda.reset_peak_memory_stats()
+    flash_ms = cuda_ms(flash, 5)
+    flash_peak = torch.cuda.max_memory_allocated()
+    sdpa_ms = cuda_ms(sdpa, 5)
+    H = Hkv * G
+    pairs = S * (S + 1) // 2
+    ops = 6 * 2 * H * D * pairs  # QK, PV; dV, dP, dQ, dK over causal pairs
+    nbytes = 2 * sum(t.numel() * t.element_size() for t in (qb, kb, vb, dob))  # in + grads out
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_TENSOR_OPS_PER_S * 1e3
+    line = {"phase": "train", "step": "flash_grad", "card": nvidia_smi(), "S": S,
+            "heads": [H, Hkv], "head_dim": D, "chunks": [cfg.q_chunk, cfg.kv_chunk],
+            "rel_err_dq_dk_dv": errs, "tol": FLASH_GRAD_TOL, "dtype_check": "float32",
+            "dtype_timed": "bfloat16", "flash_fwd_bwd_ms": flash_ms,
+            "sdpa_fwd_bwd_ms": sdpa_ms, "flash_peak_mem_bytes": flash_peak,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    emit(line)
+    if not max(errs) <= FLASH_GRAD_TOL:
+        raise AssertionError(f"train: the flash backward differs from dense autograd: {errs}")
+    return line
+
+
+def kept_batch_fn(cfg, kept, batch, seq):
+    """Batches seeded from the pipeline's kept ids, as the reference's
+    ``examples/train_lm.py`` seeds them."""
+    import numpy as np
+
+    from repro_torch.data import synthetic
+
+    def batch_fn(step):
+        rng = np.random.default_rng(np.random.SeedSequence([7, step]))
+        seeds = rng.choice(kept, size=batch)
+        return synthetic.token_batch(cfg, "train", batch, seq, step, seed=int(seeds[0]),
+                                     device=DEVICE)
+
+    return batch_fn
+
+
+def train_steps(seed, spec, kept) -> dict:
+    """qwen3-0.6b whole at its published config: float32 parameters and
+    moments, bf16 compute, ``remat="full"``, ``batch`` x ``seq`` tokens in
+    the config's microbatches; each step timed on the host clock around
+    synchronized work, TF32 off (torch's default); then one step traced by
+    the profiler and one timed with TF32 allowed."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.train import optimizer, train_step as ts
+
+    cfg = get_config(spec["arch"])
+    opt_cfg = optimizer.OptConfig(lr=3e-4, warmup_steps=2, total_steps=spec["steps"])
+    torch.cuda.reset_peak_memory_stats()
+    state = ts.init_state(cfg, seed, opt_cfg, device=DEVICE)
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    state_bytes = torch.cuda.memory_allocated()
+    step_fn = ts.make_train_step(cfg, opt_cfg, microbatches=cfg.train_microbatches)
+    batch_fn = kept_batch_fn(cfg, kept, spec["batch"], spec["seq"])
+    losses, walls = [], []
+    for i in range(spec["steps"]):
+        batch = batch_fn(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))  # synchronizes
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    batch = batch_fn(spec["steps"])
+
+    def one_step():
+        nonlocal state
+        state, _ = step_fn(state, batch)
+
+    profile = device_profile(one_step, waves=1, top=10)  # one more step, traced
+    # and one with TF32 allowed: the flash backward's float32 einsums (the
+    # reference's casts) then run on the tensor cores; a user's setting, not
+    # the port's, timed beside the default
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        tf32_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    finite = all(math.isfinite(x) for x in losses) and all(
+        bool(torch.isfinite(p).all()) for p in state["params"].parameters())
+    del state
+    tokens = spec["batch"] * spec["seq"]
+    step_s = sum(walls[1:]) / len(walls[1:])  # the first step warms up
+    flops = 6 * n_params * tokens
+    line = {"phase": "train", "step": "train", "arch": cfg.name, "card": nvidia_smi(),
+            "params": n_params, "param_dtype": "float32", "compute_dtype": cfg.dtype,
+            "remat": cfg.remat, "batch": spec["batch"], "seq": spec["seq"],
+            "microbatches": cfg.train_microbatches, "losses": losses,
+            "ln_vocab": math.log(cfg.vocab),
+            "expected_initial_loss": transformer.expected_initial_loss(cfg),
+            "finite": finite, "step_s": walls,
+            "step_ms_steady": step_s * 1e3, "tokens_per_s": tokens / step_s,
+            "model_flops_per_step": flops,
+            "bf16_peak_share": flops / step_s / BF16_TENSOR_OPS_PER_S,
+            "state_bytes": state_bytes, "peak_mem_bytes": peak,
+            "step_profile": profile, "step_ms_with_tf32": tf32_s * 1e3}
+    emit(line)
+    if not finite:
+        raise AssertionError(f"train: non-finite loss or parameters: {losses}")
+    if not abs(losses[0] - line["expected_initial_loss"]) <= INIT_LOSS_TOL:
+        raise AssertionError(f"train: step-1 loss {losses[0]} is not near ln(V) + σ²/2 = "
+                             f"{line['expected_initial_loss']}")
+    return line
+
+
+def train_restart(seed, spec, kept) -> dict:
+    """``run_train_loop`` crashed at ``restart_crash_at`` (checkpoints every
+    ``restart_every`` steps into a temporary directory), then resumed: the
+    state it loads must be bit for bit the state that was saved, and the
+    resumed losses within ``RESTART_LOSS_TOL`` of an uninterrupted run."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.ft import supervisor
+    from repro_torch.train import optimizer, train_step as ts
+
+    cfg = get_config(spec["arch"])
+    n, every, crash = spec["restart_steps"], spec["restart_every"], spec["restart_crash_at"]
+    opt_cfg = optimizer.OptConfig(lr=3e-4, warmup_steps=1, total_steps=n)
+    step_fn = ts.make_train_step(cfg, opt_cfg, microbatches=cfg.train_microbatches)
+    batch_fn = kept_batch_fn(cfg, kept, spec["restart_batch"], spec["restart_seq"])
+    timed = {"save_s": [], "load_s": []}
+    save, load = checkpoint.save, checkpoint.load
+
+    def timed_save(*a, **k):
+        t0 = time.perf_counter()
+        out = save(*a, **k)
+        timed["save_s"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_load(*a, **k):
+        t0 = time.perf_counter()
+        out = load(*a, **k)
+        torch.cuda.synchronize()
+        timed["load_s"].append(time.perf_counter() - t0)
+        return out
+
+    def leaves(state):
+        return ([state["opt"]["step"]] + [t for m in (state["params"], state["opt"]["mu"],
+                                                      state["opt"]["nu"])
+                                          for t in m.parameters()])
+
+    saved = {}
+
+    def recording_step(state, batch):  # keeps the state the step-2 checkpoint holds
+        state, metrics = step_fn(state, batch)
+        if int(state["opt"]["step"]) == every:
+            saved["leaves"] = [t.detach().clone() for t in leaves(state)]
+        return state, metrics
+
+    resumed = {}
+
+    def checking_step(state, batch):  # compares the loaded state on the first call
+        if "equal" not in resumed:
+            resumed["equal"] = len(leaves(state)) == len(saved["leaves"]) and all(
+                torch.equal(a, b) for a, b in zip(leaves(state), saved["leaves"]))
+            saved.clear()
+        return step_fn(state, batch)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    checkpoint.save, checkpoint.load = timed_save, timed_load
+    t0 = time.perf_counter()
+    try:
+        free_before = shutil.disk_usage(tmp).free
+        state = ts.init_state(cfg, seed, opt_cfg, device=DEVICE)
+        try:
+            supervisor.run_train_loop(state, recording_step, batch_fn, steps=n, ckpt_dir=tmp,
+                                      ckpt_every=every, crash_at=crash, log_every=1)
+            raise AssertionError("train restart: the injected crash did not happen")
+        except supervisor.SimulatedFault:
+            pass
+        del state
+        latest = checkpoint.latest_step(tmp)
+        ckpt_bytes = sum(f.stat().st_size for f in Path(tmp, f"step_{latest:08d}").iterdir())
+        # a fresh state (other weights), replaced by the checkpoint's
+        _, hist = supervisor.run_train_loop(ts.init_state(cfg, seed + 1, opt_cfg, device=DEVICE),
+                                            checking_step, batch_fn, steps=n, ckpt_dir=tmp,
+                                            ckpt_every=every, log_every=1)
+        state = ts.init_state(cfg, seed, opt_cfg, device=DEVICE)
+        straight = []
+        for i in range(n):
+            state, m = step_fn(state, batch_fn(i))
+            straight.append(float(m["loss"]))
+        del state
+    finally:
+        checkpoint.save, checkpoint.load = save, load
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = {s: loss for s, loss in hist}
+    errs = {s: abs(got[s] - straight[s - 1]) / straight[s - 1] for s in got}
+    line = {"phase": "train", "step": "restart", "arch": cfg.name,
+            "batch": spec["restart_batch"], "seq": spec["restart_seq"], "steps": n,
+            "ckpt_every": every, "crash_at": crash, "resumed_from": latest,
+            "loaded_state_bit_identical": resumed.get("equal", False),
+            "resumed_losses": got, "uninterrupted_losses": straight, "loss_rel_err": errs,
+            "tol": RESTART_LOSS_TOL, "checkpoint_bytes": ckpt_bytes, "free_disk_bytes":
+            free_before, **timed, "seconds": time.perf_counter() - t0}
+    emit(line)
+    if not (line["loaded_state_bit_identical"] and sorted(got) == list(range(latest + 1, n + 1))
+            and all(e <= RESTART_LOSS_TOL for e in errs.values())):
+        raise AssertionError(f"train restart failed: {line}")
+    return line
+
+
+def phase_train(seed: int, spec: dict) -> list:
+    """The training path: the SGF-filtered corpus (the probe kernel on the
+    path), gradients card against CPU, the flash backward, AdamW steps of
+    qwen3-0.6b whole, and a crash and restart from a checkpoint."""
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kept, pipe = train_pipeline(seed, spec)
+    kept = kept.cpu().numpy()
+    torch.cuda.empty_cache()
+    reset_counts()
+    lines = [pipe, train_grad_card_vs_cpu(seed, spec), train_flash_grad(seed, spec)]
+    torch.cuda.empty_cache()
+    lines.append(train_steps(seed, spec, kept))
+    torch.cuda.empty_cache()
+    lines.append(train_restart(seed, spec, kept))
+    torch.cuda.empty_cache()
+    lines.append({"phase": "train", "step": "done", "launches_after_pipeline": read_counts(),
+                  "seconds": time.perf_counter() - t_phase})
+    emit(lines[-1])
+    if any(lines[-1]["launches_after_pipeline"].values()):
+        raise AssertionError("train: a kernel of the MSJ path launched on the model path")
     return lines
 
 
@@ -2017,6 +2667,9 @@ def main() -> int:
     for spec in LM_SERVE:
         phase_lm_serve(args.seed, spec)
         torch.cuda.empty_cache()
+    # the pipeline's probe launches count on the kernels line
+    e2e.append(phase_train(args.seed, TRAIN)[0])
+    torch.cuda.empty_cache()
 
     sources = {
         "probe_bucketed": ("src/repro_torch/kernels/msj_probe/csrc/probe_hash.cu",

@@ -21,8 +21,8 @@ remains here is *policy and injection*:
   (Hadoop's "task retry with more memory" analogue), surfaced here as
   ``FTStats.capacity_retries``.
 
-The reference's checkpointed training loop (``run_train_loop``) waits for
-the port's model zoo.
+The same module supervises the training loop via :func:`run_train_loop`:
+checkpoint every N steps, crash injection, resume-from-latest.
 """
 from __future__ import annotations
 
@@ -181,3 +181,42 @@ class Supervisor:
             self.stats.shard_recoveries += self.ex.ft_counters["shard_recoveries"]
         return env, report
 
+
+
+def run_train_loop(
+    state,
+    train_step,
+    batches,
+    *,
+    steps: int,
+    ckpt_dir: str,
+    ckpt_every: int = 50,
+    crash_at: int | None = None,
+    log_every: int = 10,
+):
+    """Checkpointed training loop with optional crash injection + resume.
+
+    Returns (state, history).  If a checkpoint exists in ``ckpt_dir`` the
+    loop resumes after its step — calling this twice around a simulated
+    crash exercises the restart path end to end.  The checkpoint loads onto
+    the device of the given state's parameters; the reference's ``mesh``
+    (reshard-on-load) waits for the multi-card port.
+    """
+    from repro_torch.ckpt import checkpoint
+
+    start = 0
+    last = checkpoint.latest_step(ckpt_dir)
+    if last is not None:
+        state = checkpoint.load(ckpt_dir, last, state, device=state["params"].device)
+        start = last
+    history = []
+    for step in range(start, steps):
+        batch = batches(step)
+        state, metrics = train_step(state, batch)
+        if crash_at is not None and step + 1 == crash_at:
+            raise SimulatedFault(f"injected crash at step {crash_at}")
+        if (step + 1) % ckpt_every == 0 or step + 1 == steps:
+            checkpoint.save(ckpt_dir, step + 1, state)
+        if (step + 1) % log_every == 0:
+            history.append((step + 1, float(metrics["loss"])))
+    return state, history

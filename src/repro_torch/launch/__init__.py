@@ -1,1 +1,1 @@
-"""Launchers (``repro.launch`` counterpart): ``serve``."""
+"""Launchers (``repro.launch`` counterpart): ``serve`` and ``train``."""

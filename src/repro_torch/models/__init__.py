@@ -1,1 +1,1 @@
-"""Model zoo: the dense decoder's serving path (``repro.models`` counterpart)."""
+"""Model zoo: every family of ``repro.models``, serving and training."""

@@ -1,6 +1,6 @@
 """Zamba2-style hybrid: Mamba-2 backbone + one *shared* attention block.
 
-The counterpart of ``repro.models.hybrid``, the serving path.  The stack is
+The counterpart of ``repro.models.hybrid``: serving and the training loss.  The stack is
 ``n_groups = n_layers // period`` groups of ``period`` Mamba-2 blocks, each
 group preceded by the shared attention block (one parameter set, one KV
 cache per group), plus ``n_layers % period`` trailing Mamba-2 blocks.  The
@@ -33,11 +33,13 @@ from repro_torch.models.layers import (
 from repro_torch.models.ssm_model import MambaLayer, init_mamba_layer
 from repro_torch.models.transformer import (
     MLP,
-    TRAIN_ITEM,
     _logits,
     _param,
+    ce_loss,
     compute_dtype,
     init_head,
+    next_token_targets,
+    remat,
 )
 
 
@@ -179,17 +181,22 @@ def forward(cfg, params: Hybrid, batch):
     x0 = x
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).broadcast_to((B, S))
+    # as the reference, the Mamba-2 blocks run under the remat policy and
+    # the shared block does not
+    mb = remat(cfg, lambda x, lp: _mamba_fwd(cfg, lp, x)[0])
     for group in params.groups:
         x, _ = shared_block_fwd(cfg, params.shared, x, x0, positions)
         for lp in group:
-            x, _ = _mamba_fwd(cfg, lp, x)
+            x = mb(x, lp)
     for lp in getattr(params, "tail", ()):
-        x, _ = _mamba_fwd(cfg, lp, x)
+        x = mb(x, lp)
     return rmsnorm(x, params.final_norm.to(x.dtype), cfg.rmsnorm_eps)
 
 
-def loss_fn(cfg, params, batch):
-    raise NotImplementedError(f"the training loss is not ported yet: {TRAIN_ITEM}")
+def loss_fn(cfg, params: Hybrid, batch):
+    """Next-token CE over every position but the last."""
+    targets, mask = next_token_targets(batch["tokens"])
+    return ce_loss(cfg, forward(cfg, params, batch), params.lm_head, targets, mask)
 
 
 def init_cache(cfg, batch: int, max_len: int, *, device=None):

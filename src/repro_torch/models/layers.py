@@ -1,14 +1,14 @@
 """Shared transformer layers: RMSNorm, RoPE, GQA attention (chunked
 causal / bidirectional / decode), SwiGLU and GELU FFNs.
 
-The counterpart of ``repro.models.layers``, forward only (the serving
-path).  Matrices keep the reference's ``(d_in, d_out)`` layout and are
-applied as ``x @ w``, so the reference's parameters load without a
-transpose.  Attention is the chunked online softmax of
-:mod:`repro_torch.models.flash`; nothing of shape ``(S, S)`` is
-materialized.  The reference's training-only pieces (``rmsnorm``'s custom
-backward) and its sharding hooks (``set_activation_batch_axes``,
-``constrain_batch``) are not ported yet (ROADMAP Queue 1).
+The counterpart of ``repro.models.layers``.  Matrices keep the
+reference's ``(d_in, d_out)`` layout and are applied as ``x @ w``, so the
+reference's parameters load without a transpose.  Attention is the
+chunked online softmax of :mod:`repro_torch.models.flash`; nothing of
+shape ``(S, S)`` is materialized.  ``rmsnorm`` carries the reference's
+custom backward.  The reference's sharding hooks
+(``set_activation_batch_axes``, ``constrain_batch``) wait for the
+multi-card port (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -32,13 +32,37 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, device=None,
     return torch.randn((d_in, d_out), generator=gen, device=device, dtype=dtype) * 0.02
 
 
+class _RMSNorm(torch.autograd.Function):
+    """The reference's custom-VJP ``rmsnorm``.  Forward: the sum of squares
+    in float32, ``r`` cast to ``x.dtype``, then ``x * r * w`` in
+    ``x.dtype``.  Backward (``_rmsnorm_bwd``): the tensor math stays in
+    ``x.dtype``, float32 only for the row statistic ``t``; ``dw`` is summed
+    in float32 and cast to ``w.dtype``."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        x32 = x.float()
+        sq = (x32 * x32).sum(-1, keepdim=True)
+        r = torch.rsqrt(sq / x.shape[-1] + eps)  # (..., 1) f32
+        ctx.save_for_backward(x, w, r)
+        return x * r.to(x.dtype) * w
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, r = ctx.saved_tensors
+        g = dy * w  # (..., d) in x.dtype
+        t = (g.float() * x.float()).sum(-1, keepdim=True)
+        coef = (r * r * r * t / x.shape[-1]).to(x.dtype)  # (..., 1)
+        rx = r.to(x.dtype)
+        dx = g * rx - x * coef
+        dw = (dy * (x * rx)).float().reshape(-1, x.shape[-1]).sum(0).to(w.dtype)
+        return dx, dw.reshape(w.shape), None
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """Forward of the reference's ``_rmsnorm_fwd``: the sum of squares in
-    float32, ``r`` cast to ``x.dtype``, then ``x * r * w`` in ``x.dtype``."""
-    x32 = x.float()
-    sq = (x32 * x32).sum(-1, keepdim=True)
-    r = torch.rsqrt(sq / x.shape[-1] + eps)
-    return x * r.to(x.dtype) * w
+    """RMSNorm over the last dim with the reference's forward and backward
+    (:class:`_RMSNorm`); ``w`` has shape ``(d,)``."""
+    return _RMSNorm.apply(x, w, eps)
 
 
 def swiglu(x, w1, w3, w2):

@@ -3,22 +3,23 @@
 The counterpart of ``repro.models.model``'s public functions:
 
 * ``init_params(cfg, seed, device=None)``
+* ``loss_fn(cfg, params, batch)``            — train forward + CE
 * ``prefill(cfg, params, batch, max_len)``   — serve: prompt -> cache
 * ``decode_step(cfg, params, cache, tok)``   — serve: one token
 * ``init_cache(cfg, batch, max_len, device=None)``
 
-The dense and MoE families (:mod:`transformer`), the SSM family
-(:mod:`ssm_model`) and the hybrid (:mod:`hybrid`) are ported, forward
-only; the VLM and enc-dec families raise ``NotImplementedError`` naming
-their ROADMAP item.  The reference's GSPMD rules (``partition_specs``,
-``cache_specs``, ``batch_specs``, ``input_specs``) wait for the multi-card
-port (ROADMAP Queue 1 item 8).
+Every family is ported: dense, MoE and VLM (:mod:`transformer`), SSM
+(:mod:`ssm_model`), hybrid (:mod:`hybrid`) and enc-dec (:mod:`encdec`).
+The reference's GSPMD rules (``partition_specs``, ``cache_specs``,
+``batch_specs``, ``input_specs``) wait for the multi-card port (ROADMAP
+Queue 1).
 
 :func:`params_from_numpy` loads the reference's parameter pytree (numpy
 arrays, ``(d_in, d_out)`` matrices, layers stacked on leading axes: ``(L,
-...)`` for ``layers`` and ``tail``, ``(g, per, ...)`` for the hybrid's
-``groups``) into the port's modules; :func:`params_to_numpy` is its
-inverse.
+...)`` for ``layers``, ``tail``, ``enc_layers`` and ``dec_layers``, ``(g,
+per, ...)`` for the hybrid's ``groups``) into the port's modules;
+:func:`params_to_numpy` is its inverse.  The same mapping carries any
+module-shaped tree, such as the optimizer's moments.
 """
 from __future__ import annotations
 
@@ -26,30 +27,22 @@ import numpy as np
 import torch
 
 from repro_torch.core.relation import resolve_device
-from repro_torch.models import hybrid, ssm_model, transformer
+from repro_torch.models import encdec, hybrid, ssm_model, transformer
 
-#: the ROADMAP item that ports each family still missing
-NOT_PORTED = {
-    "vlm": "ROADMAP Queue 1 item 6d (vlm: the stub vision frontend)",
-    "audio": "ROADMAP Queue 1 item 6e (enc-dec: models/encdec.py)",
-}
-
-#: each ported family's module and the module class holding its parameters
+#: each family's module and the module class holding its parameters
 _FAMILIES = {
     "dense": (transformer, transformer.Transformer),
     "moe": (transformer, transformer.Transformer),
+    "vlm": (transformer, transformer.Transformer),
     "ssm": (ssm_model, ssm_model.SSMModel),
     "hybrid": (hybrid, hybrid.Hybrid),
+    "audio": (encdec, encdec.EncDec),
 }
 
 
 def _mod(cfg):
     if cfg.family in _FAMILIES:
         return _FAMILIES[cfg.family][0]
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.name}) is not ported yet: {NOT_PORTED[cfg.family]}"
-        )
     raise ValueError(cfg.family)
 
 
@@ -70,7 +63,10 @@ def decode_step(cfg, params, cache, tokens):
 
 
 def init_cache(cfg, batch: int, max_len: int, *, device=None):
-    return _mod(cfg).init_cache(cfg, batch, max_len, device=device)
+    m = _mod(cfg)
+    if cfg.family == "audio":  # 3/4 self positions, 1/4 cross positions
+        return m.init_cache(cfg, batch, (max_len * 3) // 4, max_len // 4, device=device)
+    return m.init_cache(cfg, batch, max_len, device=device)
 
 
 # --------------------------------------------------------------------------
@@ -107,6 +103,20 @@ def _stacks(params) -> dict:
         top = shapes.get(path, (0,) * len(index))
         shapes[path] = tuple(max(t, i + 1) for t, i in zip(top, index))
     return shapes
+
+
+def leaf_paths(params) -> list[str]:
+    """The reference's leaf path of each parameter, in ``parameters()``
+    order: the layers of one stacked leaf share a path."""
+    return [_tree_name(name)[0] for name, _ in params.named_parameters()]
+
+
+def leaf_shapes(params) -> dict:
+    """Each leaf path of the reference's pytree (``layers.attn.wq``) -> its
+    shape there, stacked axes first, without copying anything."""
+    stacks = _stacks(params)
+    return {path: stacks[path] + tuple(p.shape) for path, p in
+            ((_tree_name(name)[0], p) for name, p in params.named_parameters())}
 
 
 def params_from_numpy(cfg, tree: dict, device=None, dtype=None):

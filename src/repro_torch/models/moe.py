@@ -1,6 +1,7 @@
 """Mixture-of-Experts FFN with the reference's two dispatch implementations.
 
-The counterpart of ``repro.models.moe``, forward only.
+The counterpart of ``repro.models.moe``; autograd differentiates both
+dispatches, through the router weights that ``router_topk`` gathered.
 
 * ``dense`` — loop over experts; every expert processes every token and
   the results combine with the (mostly zero) router weights.  Exact, and

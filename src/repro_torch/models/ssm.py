@@ -1,6 +1,7 @@
 """State-space sequence layers: Mamba-1 (selective scan) and Mamba-2 (SSD).
 
-The counterpart of ``repro.models.ssm``, forward only.  Both blocks expose
+The counterpart of ``repro.models.ssm``; autograd differentiates the
+blocks (the reference has no custom backward here).  Both blocks expose
 a one-token ``*_decode`` step carrying (conv window, SSM state): O(1)
 per token, with no KV cache.
 
@@ -129,6 +130,14 @@ def _chunk_recurrence(dA, dBx):
     from h = 0, for every chunk at once: one fused multiply-add over all
     chunks per position, the reference's ``associative_scan`` of
     ``combine`` evaluated in order."""
+    if torch.is_grad_enabled() and (dA.requires_grad or dBx.requires_grad):
+        # autograd records no ``out=``: the same fused steps, stacked (at
+        # a cost the in-place form below spares inference: a second copy of
+        # the states while they are stacked)
+        h = [dBx[:, :, 0]]
+        for t in range(1, dBx.shape[2]):
+            h.append(torch.addcmul(dBx[:, :, t], dA[:, :, t], h[-1]))
+        return torch.stack(h, 2)
     hs = torch.empty_like(dBx)
     hs[:, :, 0] = dBx[:, :, 0]
     for t in range(1, dBx.shape[2]):

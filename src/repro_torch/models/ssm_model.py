@@ -1,4 +1,4 @@
-"""Attention-free Mamba-1 LM (falcon-mamba family): the serving path.
+"""Attention-free Mamba-1 LM (falcon-mamba family): serving and the training loss.
 
 The counterpart of ``repro.models.ssm_model``: a stack of pre-norm
 residual Mamba-1 blocks whose decode carries O(1) state per slot (a conv
@@ -14,7 +14,15 @@ from torch import nn
 from repro_torch.core.relation import resolve_device
 from repro_torch.models import ssm
 from repro_torch.models.layers import rmsnorm
-from repro_torch.models.transformer import TRAIN_ITEM, _logits, _param, compute_dtype, init_head
+from repro_torch.models.transformer import (
+    _logits,
+    _param,
+    ce_loss,
+    compute_dtype,
+    init_head,
+    next_token_targets,
+    remat,
+)
 
 
 class MambaLayer(nn.Module):
@@ -84,14 +92,21 @@ def _embed(cfg, params, tokens):
 def forward(cfg, params: SSMModel, batch):
     """Full-sequence forward to the final hidden states (B, S, d)."""
     x = _embed(cfg, params, batch["tokens"])
-    for lp in params.layers:
+
+    def body(x, lp):
         h = rmsnorm(x, lp.ln.to(x.dtype), cfg.rmsnorm_eps)
-        x = x + ssm.mamba1(lp.mamba, h, d_state=cfg.ssm_state, chunk=cfg.ssm_chunk)
+        return x + ssm.mamba1(lp.mamba, h, d_state=cfg.ssm_state, chunk=cfg.ssm_chunk)
+
+    body = remat(cfg, body)
+    for lp in params.layers:
+        x = body(x, lp)
     return rmsnorm(x, params.final_norm.to(x.dtype), cfg.rmsnorm_eps)
 
 
-def loss_fn(cfg, params, batch):
-    raise NotImplementedError(f"the training loss is not ported yet: {TRAIN_ITEM}")
+def loss_fn(cfg, params: SSMModel, batch):
+    """Next-token CE over every position but the last."""
+    targets, mask = next_token_targets(batch["tokens"])
+    return ce_loss(cfg, forward(cfg, params, batch), params.lm_head, targets, mask)
 
 
 def init_cache(cfg, batch: int, max_len: int, *, device=None):

@@ -1,4 +1,4 @@
-"""Decoder-only transformer, dense and MoE families: the serving path.
+"""Decoder-only transformer: the dense, MoE and stub-frontend VLM families.
 
 The counterpart of ``repro.models.transformer``.  Where the reference
 stacks the layers' parameters on a leading ``L`` axis and scans over
@@ -9,14 +9,24 @@ them, the port holds one :class:`DecoderLayer` module per layer and loops
 cast once when they were loaded skips those casts.  Logits are float32.
 
 A ``moe`` config's layers hold an :class:`~repro_torch.models.moe.MoE` in
-place of the MLP (``_ffn`` dispatches on ``cfg.moe_impl``).  The chunked
-cross-entropy (``ce_loss``) and ``loss_fn`` wait for the training slice
-and raise ``NotImplementedError`` naming its ROADMAP item.
+place of the MLP (``_ffn`` dispatches on ``cfg.moe_impl``).  A ``vlm``
+batch carries ``embeds`` ``(B, frontend_tokens, d)``, the stub frontend's
+patch embeddings, prepended to the token embeddings: they take the first
+positions of the KV cache, and decode positions count them.
+
+Training: :func:`loss_fn` is the next-token cross-entropy over the text
+positions, computed in sequence chunks by :func:`ce_loss`, which never
+holds ``(B, S, V)`` logits (its backward recomputes each chunk's logits).
+Under autograd each layer runs inside ``torch.utils.checkpoint`` as the
+config's ``remat`` asks (:func:`remat`).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.relation import resolve_device
 from repro_torch.models import kvcache, moe
@@ -30,9 +40,6 @@ from repro_torch.models.layers import (
     rmsnorm,
     swiglu,
 )
-
-TRAIN_ITEM = "ROADMAP Queue 1 item 6f (training)"
-
 
 def compute_dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
@@ -133,8 +140,17 @@ def init_head(model, gen: torch.Generator):
     return model
 
 
+def expected_initial_loss(cfg) -> float:
+    """The mean next-token loss of freshly initialised weights on uniform
+    tokens: the final norm gives rows of unit RMS over d entries and the
+    head's weights have std 0.02, so the logits are about normal with
+    variance σ² = d · 0.02², E[logsumexp] = ln V + σ²/2 over V of them,
+    and the target's logit is 0 on average."""
+    return math.log(cfg.vocab) + cfg.d_model * 0.02**2 / 2
+
+
 # --------------------------------------------------------------------------
-# Layer body (shared by prefill / decode)
+# Layer body (shared by train / prefill / decode)
 # --------------------------------------------------------------------------
 
 
@@ -146,7 +162,7 @@ def _ffn(cfg, lp: DecoderLayer, h):
 
 
 def layer_fwd(cfg, lp: DecoderLayer, x, positions):
-    """Full-sequence layer (prefill). Returns (x', (k, v))."""
+    """Full-sequence layer (train / prefill). Returns (x', (k, v))."""
     h = rmsnorm(x, lp.ln1.to(x.dtype), cfg.rmsnorm_eps)
     q, k, v = qkv_project(
         lp.attn, h, cfg.n_heads, cfg.n_kv, cfg.head_dim, positions,
@@ -203,6 +219,18 @@ def embed_inputs(cfg, params: Transformer, batch):
     return x, n_prefix
 
 
+def remat(cfg, fn):
+    """``fn`` wrapped as the config's remat policy asks when autograd is
+    recording (the reference's ``_remat``): ``"full"`` runs it under
+    ``torch.utils.checkpoint`` (non-reentrant), which keeps only its inputs
+    and recomputes it in the backward; ``"none"`` keeps every activation.
+    ``"dots"`` (the reference keeps the matmul outputs) falls back to
+    ``"full"``: torch's checkpoint has no per-op save policy."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def forward(cfg, params: Transformer, batch, *, collect_kv: bool = False):
     """Full-sequence forward to final hidden states.
 
@@ -211,9 +239,12 @@ def forward(cfg, params: Transformer, batch, *, collect_kv: bool = False):
     x, n_prefix = embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).broadcast_to((B, S))
+    # prefill collects each layer's K/V and runs without autograd, where
+    # ``remat`` returns the body as it is
+    body = remat(cfg, lambda x, lp: layer_fwd(cfg, lp, x, positions))
     ks, vs = [], []
     for lp in params.layers:
-        x, (k, v) = layer_fwd(cfg, lp, x, positions)
+        x, (k, v) = body(x, lp)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -222,12 +253,83 @@ def forward(cfg, params: Transformer, batch, *, collect_kv: bool = False):
     return x, n_prefix, kvs
 
 
+class _ChunkedCE(torch.autograd.Function):
+    """Masked mean next-token cross-entropy of ``hidden @ lm_head``, chunk by
+    chunk along the sequence: the forward keeps each position's float32
+    log-sum-exp, the backward recomputes each chunk's logits, so no more
+    than one chunk's ``(B, chunk, V)`` logits are ever live."""
+
+    @staticmethod
+    def forward(ctx, hidden, lm_head, targets, mask, chunk):
+        S = hidden.shape[1]
+        w = lm_head.to(hidden.dtype)
+        tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        lses = []
+        for lo in range(0, S, chunk):
+            logits = (hidden[:, lo:lo + chunk] @ w).to(torch.float32)
+            lse = torch.logsumexp(logits, dim=-1)
+            tgt = logits.gather(-1, targets[:, lo:lo + chunk, None])[..., 0]
+            tot += ((lse - tgt) * mask[:, lo:lo + chunk]).sum()
+            lses.append(lse)
+            del logits
+        cnt = torch.clamp(mask.sum(), min=1.0)
+        ctx.save_for_backward(hidden, lm_head, targets, mask, torch.cat(lses, 1), cnt)
+        ctx.chunk = chunk
+        return tot / cnt
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, lm_head, targets, mask, lse, cnt = ctx.saved_tensors
+        chunk = ctx.chunk
+        S, d = hidden.shape[1], hidden.shape[2]
+        w = lm_head.to(hidden.dtype)
+        coef = mask * (g / cnt)  # (B, S) f32
+        dh = torch.empty_like(hidden)
+        dw = torch.zeros(lm_head.shape, dtype=torch.float32, device=lm_head.device)
+        for lo in range(0, S, chunk):
+            xc = hidden[:, lo:lo + chunk]
+            # d loss / d logits = (softmax - onehot(target)) * mask * g / cnt
+            p = torch.exp((xc @ w).to(torch.float32) - lse[:, lo:lo + chunk, None])
+            p.scatter_add_(-1, targets[:, lo:lo + chunk, None],
+                           torch.full_like(p[..., :1], -1.0))
+            p *= coef[:, lo:lo + chunk, None]
+            dl = p.to(hidden.dtype)
+            del p
+            dh[:, lo:lo + chunk] = dl @ w.T
+            dw += (xc.reshape(-1, d).T @ dl.reshape(-1, dl.shape[-1])).to(torch.float32)
+        return dh, dw.to(lm_head.dtype), None, None, None
+
+
 def ce_loss(cfg, hidden, lm_head, targets, mask):
-    raise NotImplementedError(f"the chunked cross-entropy is not ported yet: {TRAIN_ITEM}")
+    """Chunked cross-entropy; never materializes (B, S, V).
+
+    The reference's ``ce_loss``: logits ``hidden @ lm_head`` in
+    ``hidden.dtype``, then float32; the loss is ``sum((lse - logit[target])
+    * mask) / max(sum(mask), 1)``.  The reference takes chunks of the
+    largest divisor of S that is ≤ ``cfg.ce_chunk``; the port takes chunks
+    of ``cfg.ce_chunk`` and a shorter last one (the same sum in another
+    order)."""
+    return _ChunkedCE.apply(hidden, lm_head, targets.long(), mask.to(torch.float32),
+                            min(cfg.ce_chunk, hidden.shape[1]))
 
 
-def loss_fn(cfg, params, batch):
-    raise NotImplementedError(f"the training loss is not ported yet: {TRAIN_ITEM}")
+def next_token_targets(tokens, n_prefix: int = 0):
+    """(targets, mask) over ``n_prefix`` + S positions: position t predicts
+    ``tokens[t+1]``; the last position and the ``n_prefix`` frontend
+    positions in front are masked out (the reference's ``loss_fn``)."""
+    B, St = tokens.shape
+    targets = torch.zeros((B, n_prefix + St), dtype=torch.int64, device=tokens.device)
+    targets[:, n_prefix:n_prefix + St - 1] = tokens[:, 1:]
+    mask = torch.zeros((B, n_prefix + St), dtype=torch.float32, device=tokens.device)
+    mask[:, n_prefix:n_prefix + St - 1] = 1.0
+    return targets, mask
+
+
+def loss_fn(cfg, params: Transformer, batch):
+    """Next-token CE over text positions (prefix embeddings unsupervised)."""
+    hidden, n_prefix, _ = forward(cfg, params, batch)
+    targets, mask = next_token_targets(batch["tokens"], n_prefix)
+    return ce_loss(cfg, hidden, params.lm_head, targets, mask)
 
 
 # --------------------------------------------------------------------------

@@ -422,3 +422,103 @@ def _serving_on_card_equals_cpu(cuda, arch):
     for r in reqs:
         batch = {"tokens": torch.as_tensor(r.prompt[None, :], device=cuda)}
         assert greedy_generate(cfg, card, batch, steps=6, max_len=48)[0].tolist() == r.out
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "seamless-m4t-medium"])
+def test_frontend_serving_on_card_equals_cpu(cuda, arch):
+    """The VLM and the enc-dec at SMOKE size: prefill with the stub
+    frontend's embeddings and two decode steps on the card against the
+    CPU (float32, TF32 off, within 1e-4 × max |logit|); greedy generation
+    of a two-request batch equal to each request alone, on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.serve.serve_step import greedy_generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, smoke=True, dtype="float32")
+    card = model.init_params(cfg, 0, device=cuda)
+    cpu = model.params_from_numpy(cfg, model.params_to_numpy(card), device="cpu")
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, cfg.vocab, (2, 33))
+    emb = (0.1 * rng.standard_normal((2, cfg.frontend_tokens or 9, cfg.d_model))).astype(
+        np.float32)
+    logits = {}
+    for where, p in (("card", card), ("cpu", cpu)):
+        t = torch.as_tensor(tokens, device=p.device)
+        e = torch.as_tensor(emb, device=p.device)
+        with torch.inference_mode():
+            cache, a = model.prefill(cfg, p, {"tokens": t[:, :31], "embeds": e}, 64)
+            cache, b = model.decode_step(cfg, p, cache, t[:, 31:32])
+            cache, c = model.decode_step(cfg, p, cache, t[:, 32:33])
+        logits[where] = torch.stack([a, b, c]).cpu()
+    err = (logits["card"] - logits["cpu"]).abs().max() / logits["cpu"].abs().max()
+    assert float(err) <= 1e-4
+    t = torch.as_tensor(tokens[:, :20], device=cuda)
+    e = torch.as_tensor(emb, device=cuda)
+    both = greedy_generate(cfg, card, {"tokens": t, "embeds": e}, steps=5, max_len=64)
+    for i in range(2):
+        alone = greedy_generate(cfg, card, {"tokens": t[i:i + 1], "embeds": e[i:i + 1]},
+                                steps=5, max_len=64)
+        assert both[i].tolist() == alone[0].tolist()
+
+
+@pytest.mark.parametrize("causal,window,S", [(True, 0, 300), (False, 0, 257), (True, 64, 300)])
+def test_flash_and_rmsnorm_backward_on_card_equal_cpu(cuda, causal, window, S):
+    """The flash and rmsnorm backwards on the card against the CPU on the
+    same float32 inputs (TF32 off): within 1e-4 of each gradient's max."""
+    from repro_torch.models import flash, layers
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(S)
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in
+            ((2, 2, 2, S, 32), (2, 2, S, 32), (2, 2, S, 32), (2, 2, 2, S, 32),
+             (3, S, 64), (64,), (3, S, 64))]
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        q, k, v, do, x, w, dy = (torch.as_tensor(a, device=dev) for a in arrs)
+        for a in (q, k, v, x, w):
+            a.requires_grad_(True)
+        flash.flash_attention(q, k, v, causal, window, 0, 128, 128).backward(do)
+        layers.rmsnorm(x, w, 1e-6).backward(dy)
+        grads[dev.type] = [a.grad.cpu() for a in (q, k, v, x, w)]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+
+
+def test_loss_and_grads_on_card_equal_cpu(cuda):
+    """qwen3-0.6b SMOKE's loss and every gradient on the card against the
+    CPU, float32 (TF32 off), same weights: within 1e-4 of each leaf's max
+    |g| (the embedding backward's atomics reorder sums on the card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.models import model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen3-0.6b", smoke=True, dtype="float32")
+    card = model.init_params(cfg, 0, device=cuda).requires_grad_(True)
+    cpu = model.params_from_numpy(cfg, model.params_to_numpy(card), device="cpu")
+    cpu.requires_grad_(True)
+    out = {}
+    for where, p in (("card", card), ("cpu", cpu)):
+        batch = synthetic.token_batch(cfg, "train", 2, 61, 0, device=p.device)
+        loss = model.loss_fn(cfg, p, batch)
+        loss.backward()
+        out[where] = (float(loss.detach()), [q.grad.cpu() for q in p.parameters()])
+    assert abs(out["card"][0] - out["cpu"][0]) <= 1e-5 * out["cpu"][0]
+    for got, want in zip(out["card"][1], out["cpu"][1]):
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+
+
+def test_filter_corpus_on_card_equals_cpu(cuda):
+    """The Keep query on the card (each MSJ job on the hash-join kernel)
+    against the CPU: the same kept ids and summary counters."""
+    from repro_torch.data import pipeline, synthetic
+
+    rels = synthetic.corpus_relations(1 << 16, seed=3)
+    before = ops.probe_bucketed.launches
+    got, summary = pipeline.filter_corpus(rels, P=8, device=cuda)
+    assert ops.probe_bucketed.launches > before
+    want, want_summary = pipeline.filter_corpus(rels, P=8, device="cpu")
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    for k in ("jobs", "bytes_shuffled", "input_rows"):
+        assert summary[k] == want_summary[k]

@@ -33,7 +33,11 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.models.flash", "repro_torch.models.kvcache",
             "repro_torch.models.transformer", "repro_torch.models.model",
             "repro_torch.serve.serve_step", "repro_torch.serve.batcher",
-            "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.serve", "repro_torch.models.encdec",
+            "repro_torch.train.optimizer", "repro_torch.train.grad_compress",
+            "repro_torch.train.train_step", "repro_torch.data.synthetic",
+            "repro_torch.data.pipeline", "repro_torch.ckpt.checkpoint",
+            "repro_torch.launch.train"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -354,24 +354,3 @@ def test_entry_points_need_a_card(monkeypatch, arch):
     assert all(v.device.type == "cpu" for v in model.init_cache(cfg, 1, 8, device="cpu").values())
     params = model.params_from_numpy(cfg, tree, device="cpu")
     assert params.device.type == "cpu"
-
-
-@pytest.mark.parametrize("arch", [a for a in configs.list_archs()
-                                  if configs.get_config(a).family in model.NOT_PORTED])
-def test_other_families_name_their_roadmap_item(arch):
-    cfg = configs.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        model.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.init_cache(cfg, 1, 8, device="cpu")
-
-
-def test_training_pieces_name_their_roadmap_item(zoo):
-    _, cfg, _, _, tp = zoo["qwen3-0.6b"]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6f"):
-        model.loss_fn(cfg, tp, {"tokens": t(np.zeros((1, 4), np.int32))})
-    for arch in ("falcon-mamba-7b", "zamba2-7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6f"):
-            model.loss_fn(configs.get_config(arch, smoke=True), None, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6f"):
-        transformer.ce_loss(cfg, None, None, None, None)
