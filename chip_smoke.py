@@ -137,8 +137,31 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    ``run_train_loop`` crashed at step 3 (checkpoints every 2 steps into a
    temporary directory, removed after), resumed: the loaded state bit for
    bit the saved one, resumed losses within 1e-3 of an uninterrupted run.
+11. ``mesh``   — the multi-card layer (``repro_torch.launch.mesh``,
+   ``engine.comm.MeshComm``, the sharding rules, sharded train state,
+   reshard-on-load).  One card: NCCL at world size 1, and four gloo ranks
+   sharing the card (NCCL refuses two ranks on one device; gloo stages card
+   tensors through the host), spawned once after the kernels are built.
+   ``mesh_msj``: the A3 job's map, probe and out stages at 2**24 rows, one
+   gloo rank per shard (P = 4), each rank's result bit for bit its shard of
+   ``run_pipeline`` under ``SimComm(4)`` (the count-sized ``forward_cap``
+   fixed in the parent), every rank's probe counters from 0 around its
+   measured run and each launching the kernel; then P = 1 over NCCL against
+   ``SimComm(1)``.  ``mesh_train``: qwen3-0.6b whole on the (1, 1) NCCL
+   mesh, its state placed by ``state_specs``, two steps of the ``train``
+   batch against two unsharded steps from the same seed, bit for bit under
+   deterministic algorithms (else each differing leaf within 1e-6 in
+   |Δ|₂), both timed; a checkpoint saved with ``mesh=`` and loaded with
+   ``specs=``, and ``reshard_state`` onto a fresh (1, 1) mesh, bit for bit.
+   ``mesh_train_4``: four gloo ranks on (data, model) = (2, 2),
+   qwen3-0.6b at its width with 2 layers, float32, TF32 off, two steps of
+   4 × 1024 tokens: each rank's state bytes equal the sum of its shards as
+   ``state_specs`` gives them, losses within 1e-5 of one rank's run and
+   each parameter leaf within 1e-5 in |Δ|₂ / |p|₂, the (2, 2) checkpoint
+   loaded onto (1, 1) bit for bit.
 
-Then a ``kernels`` JSON line (``launches`` count the pipeline's too), the
+Then a ``kernels`` JSON line (``launches`` count the pipeline's and the
+mesh ranks' too), the
 raw ``nvidia-smi`` name/power line, and as the last line ``{"ok": true,
 "device": {...}}``.  Without a CUDA device it exits 1 before printing any
 result.
@@ -2567,6 +2590,516 @@ def phase_train(seed: int, spec: dict) -> list:
 
 
 # --------------------------------------------------------------------------
+# phase 11: the multi-card layer
+# --------------------------------------------------------------------------
+
+#: the mesh phase: (a) the A3 MSJ stages at 2**msj_log2_rows rows, P =
+#: msj_P gloo ranks on the one card, then P = 1 over NCCL; (b) qwen3-0.6b
+#: whole on the (1, 1) NCCL mesh with the train phase's batch; (c) four
+#: gloo ranks on (2, 2), qwen3-0.6b at its width with four_layers layers
+MESH = {"msj_log2_rows": 24, "msj_P": 4, "train_steps": 2,
+        "four_layers": 2, "four_batch": 4, "four_seq": 1024, "four_steps": 2,
+        "ranks_timeout_s": 400, "collective_timeout_s": 300}  # the ranks took 62.5 s
+MESH_TOL = 1e-5  # relative, 4 gloo ranks to 1: losses, grad norms; parameters per leaf in |Δ|₂
+SHARDED_TOL = 1e-6  # relative |Δ|₂ per leaf, (1, 1) mesh against no mesh, if not bit-identical
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_rank_setup(rank: int, port: int, world: int) -> None:
+    """One of ``world`` gloo ranks on the one card (NCCL refuses two ranks
+    on one device; gloo stages card tensors through the host)."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank, timeout=timedelta(seconds=MESH["collective_timeout_s"]))
+
+
+def spawn_ranks(fn, args, n: int) -> float:
+    """``fn(rank, *args)`` in ``n`` spawned processes; kills them and
+    raises if they have not all finished within ``MESH["ranks_timeout_s"]``.
+    Returns the seconds they took."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctx = mp.spawn(fn, args=args, nprocs=n, join=False)
+    while not ctx.join(timeout=5):
+        if time.perf_counter() - t0 > MESH["ranks_timeout_s"]:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"mesh: the {n} ranks did not finish within "
+                                 f"{MESH['ranks_timeout_s']} s")
+    return time.perf_counter() - t0
+
+
+def a3_semijoins():
+    from repro_torch.core import queries
+    from repro_torch.core.algebra import semijoins_of
+
+    qs = queries.make_queries("A3")
+    return qs, [sj for q in qs for sj in semijoins_of(q)]
+
+
+def msj_stages(db, sjs, comm, cap):
+    """The A3 job's map, probe and out stages (``_MSJKit``, the probe
+    kernel as ``probe_fn``) at forward capacity ``cap``."""
+    from repro_torch.core import msj
+    from repro_torch.kernels.msj_probe import ops
+
+    kit = msj._MSJKit(db, msj.make_spec(sjs), comm, cap, probe_fn=ops.probe_bucketed)
+    return kit, [kit.stage_map, kit.stage_probe, kit.stage_out]
+
+
+def result_tensors(result) -> list:
+    """An MSJ pipeline result's tensors in a fixed order."""
+    outputs, stats = result
+    return ([t for k in sorted(outputs) for t in (outputs[k].data, outputs[k].valid)]
+            + [stats[k] for k in sorted(stats)])
+
+
+def path_launches(name, launches) -> None:
+    """The probe kernel and both of its kernels launched on the path."""
+    idle = [k for k in ("probe_bucketed", "table_build", "table_probe") if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"{name}: kernels of the path never launched: {idle}")
+    check_probe_launches(name, launches, "probe_bucketed")
+
+
+def mesh_msj_rank(rank, tmp, cap, P) -> dict:
+    """Part (a), one rank: the stages on its shard under ``MeshComm``, once
+    warm and once with the launch counters from 0, against its shard of
+    the ``SimComm`` run."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.relation import db_from_dict
+    from repro_torch.engine.comm import MeshComm, run_pipeline
+    from repro_torch.launch.mesh import AXES
+
+    _, sjs = a3_semijoins()
+    db_np = {p.stem[3:]: np.load(p) for p in Path(tmp).glob("db_*.npy")}
+    db = db_from_dict(db_np, P=P, device=DEVICE)
+    comm = MeshComm(init_device_mesh(torch.device(DEVICE).type, (P, 1), mesh_dim_names=AXES),
+                    "data")
+    kit, stages = msj_stages(db, sjs, comm, cap)
+    run_pipeline(comm, stages, kit.stacked)  # warm
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    t0 = time.perf_counter()
+    got = run_pipeline(comm, stages, kit.stacked)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = torch.load(Path(tmp) / f"want{rank}.pt")
+    mine = [t.cpu() for t in result_tensors(got)]
+    equal = len(mine) == len(want) and all(torch.equal(a, b) for a, b in zip(mine, want))
+    return {"rank": rank, "shard": comm.shard_id(), "bit_identical": equal, "wall_s": wall,
+            "peak_mem_bytes": peak, "launches": launches}
+
+
+def mesh_rank(rank, port, tmp, cap, P, seed):
+    """One of the P gloo ranks: part (a), then part (c)."""
+    import torch
+    import torch.distributed as dist
+
+    mesh_rank_setup(rank, port, P)
+    out = {"msj": mesh_msj_rank(rank, tmp, cap, P)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train_4"] = mesh_train4_rank(rank, tmp, seed)
+    Path(tmp, f"rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def msj_reference(seed, tmp):
+    """Part (a)'s reference: the A3 job under ``SimComm(P)`` on the card,
+    its count-sized ``forward_cap`` fixed here; each shard's result and
+    the relations written to ``tmp`` for the ranks."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import msj, queries
+    from repro_torch.core.relation import db_from_dict
+    from repro_torch.engine.comm import SimComm, run_pipeline
+
+    rows, P = 2 ** MESH["msj_log2_rows"], MESH["msj_P"]
+    qs, sjs = a3_semijoins()
+    db_np = queries.gen_db(qs, n_guard=rows, n_cond=rows, sel=0.5, seed=seed)
+    db = db_from_dict(db_np, P=P, device=DEVICE)
+    cap = msj.count_forward_cap(msj.make_spec(sjs), db, SimComm(P))
+    kit, stages = msj_stages(db, sjs, SimComm(P), cap)
+    run_pipeline(SimComm(P), stages, kit.stacked)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = result_tensors(run_pipeline(SimComm(P), stages, kit.stacked))
+    torch.cuda.synchronize()
+    sim_wall = time.perf_counter() - t0
+    for r in range(P):
+        torch.save([t[r].cpu() for t in want], Path(tmp) / f"want{r}.pt")
+    for k, a in db_np.items():
+        np.save(Path(tmp) / f"db_{k}.npy", a)
+    return db_np, sjs, cap, sim_wall
+
+
+def mesh_msj_nccl(db_np, sjs, mesh) -> dict:
+    """Part (a) at P = 1 over NCCL: the stages under ``MeshComm`` against
+    ``SimComm(1)``, the launch counters from 0 around the measured run."""
+    import torch
+
+    from repro_torch.core import msj
+    from repro_torch.core.relation import db_from_dict
+    from repro_torch.engine.comm import MeshComm, SimComm, run_pipeline
+
+    db = db_from_dict(db_np, P=1, device=DEVICE)
+    cap = msj.count_forward_cap(msj.make_spec(sjs), db, SimComm(1))
+    kit, stages = msj_stages(db, sjs, SimComm(1), cap)
+    want = [t[0] for t in result_tensors(run_pipeline(SimComm(1), stages, kit.stacked))]
+    comm = MeshComm(mesh, "data")
+    kit, stages = msj_stages(db, sjs, comm, cap)
+    run_pipeline(comm, stages, kit.stacked)  # warm
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = result_tensors(run_pipeline(comm, stages, kit.stacked))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    path_launches("mesh_msj nccl", launches)
+    return {"P": 1, "forward_cap": cap, "wall_s": wall, "launches": launches,
+            "bit_identical": all(torch.equal(a, b) for a, b in zip(want, got))}
+
+
+def state_leaves(state) -> dict:
+    """Every tensor of a train state by name (DTensors as they are)."""
+    out = {"opt.step": state["opt"]["step"]}
+    for key, m in (("params", state["params"]), ("opt.mu", state["opt"]["mu"]),
+                   ("opt.nu", state["opt"]["nu"])):
+        out.update({f"{key}.{n}": p for n, p in m.named_parameters()})
+    return out
+
+
+def rel_l2(want, got) -> float:
+    import torch
+
+    want, got = want.detach().double(), got.detach().double()
+    return float(torch.linalg.vector_norm(want - got) / torch.linalg.vector_norm(want))
+
+
+def same_state(a, b) -> bool:
+    """Two states hold the same shards, bit for bit, in the same placements."""
+    import torch
+
+    from repro_torch.launch.mesh import local
+
+    la, lb = state_leaves(a), state_leaves(b)
+    return la.keys() == lb.keys() and all(
+        getattr(la[k], "placements", None) == getattr(lb[k], "placements", None)
+        and torch.equal(local(la[k]), local(lb[k])) for k in la)
+
+
+def mesh_train(seed, mesh):
+    """Part (b): qwen3-0.6b whole on the (1, 1) NCCL mesh against no mesh,
+    the same steps from the same seed under deterministic algorithms
+    (the card's embedding backward otherwise sums with atomics); then a
+    checkpoint saved with ``mesh=`` and loaded with ``specs=``, and
+    ``reshard_state`` onto a fresh (1, 1) mesh, each bit-identical."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.ft import elastic
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.train import optimizer, train_step as ts
+
+    cfg = get_config(TRAIN["arch"])
+    steps = MESH["train_steps"]
+    opt_cfg = optimizer.OptConfig(lr=3e-4, warmup_steps=1, total_steps=steps)
+    step_fn = ts.make_train_step(cfg, opt_cfg, microbatches=cfg.train_microbatches)
+    batches = [synthetic.token_batch(cfg, "train", TRAIN["batch"], TRAIN["seq"], i, seed=seed,
+                                     device=DEVICE) for i in range(steps)]
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for label in ("plain", "sharded"):
+            # the plain state stays allocated through the sharded run (for
+            # the comparison): each run's peak is also given above its start
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            state = ts.init_state(cfg, seed, opt_cfg, device=DEVICE)
+            if label == "sharded":
+                state = elastic.reshard_state(state, ts.state_specs(cfg, state, mesh), mesh)
+            losses, walls = [], []
+            for batch in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step_fn(state, batch)
+                losses.append(float(m["loss"]))  # synchronizes
+                walls.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated()
+            runs[label] = {"state": state, "losses": losses, "step_s": walls,
+                           "peak_mem_bytes": peak, "allocated_at_start_bytes": start,
+                           "peak_above_start_bytes": peak - start}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    plain, sharded = runs["plain"]["state"], runs["sharded"]["state"]
+    lp, ls = state_leaves(plain), state_leaves(sharded)
+    differ = {k: rel_l2(lp[k].float(), mesh_lib.local(ls[k]).float()) for k in lp
+              if not torch.equal(lp[k], mesh_lib.local(ls[k]))}
+    bit_identical = not differ and runs["plain"]["losses"] == runs["sharded"]["losses"]
+    del plain, lp, ls, runs["plain"]["state"]
+    torch.cuda.empty_cache()
+
+    specs = ts.state_specs(cfg, sharded, mesh)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        checkpoint.save(tmp, steps, sharded, mesh=mesh)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = checkpoint.load(tmp, steps, sharded, mesh=mesh, specs=specs)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    load_equal = same_state(sharded, loaded)
+    del loaded
+    fresh = init_device_mesh(mesh.device_type, (1, 1), mesh_dim_names=mesh_lib.AXES)
+    t0 = time.perf_counter()
+    moved = elastic.reshard_state(sharded, ts.state_specs(cfg, sharded, fresh), fresh)
+    torch.cuda.synchronize()
+    reshard_s = time.perf_counter() - t0
+    reshard_equal = same_state(sharded, moved)
+    del moved, sharded, runs["sharded"]["state"]
+    line = {"phase": "mesh", "step": "mesh_train", "card": nvidia_smi(), "arch": cfg.name,
+            "mesh": mesh_lib.axis_sizes(mesh), "backend": dist.get_backend(),
+            "batch": TRAIN["batch"],
+            "seq": TRAIN["seq"], "microbatches": cfg.train_microbatches,
+            "deterministic_algorithms": True,
+            "plain": runs["plain"], "sharded": runs["sharded"], "bit_identical": bit_identical,
+            "leaves_not_bit_identical": differ, "tol_if_not": SHARDED_TOL,
+            "checkpoint_save_s": save_s, "checkpoint_load_s": load_s,
+            "checkpoint_bit_identical": load_equal, "reshard_s": reshard_s,
+            "reshard_bit_identical": reshard_equal}
+    emit(line)
+    close = runs["plain"]["losses"] == runs["sharded"]["losses"] or all(
+        abs(a - b) <= SHARDED_TOL * abs(a)
+        for a, b in zip(runs["plain"]["losses"], runs["sharded"]["losses"]))
+    if not (close and all(v <= SHARDED_TOL for v in differ.values()) and load_equal
+            and reshard_equal):
+        raise AssertionError(f"mesh_train failed: {line}")
+    return line
+
+
+def local_state_bytes(state) -> int:
+    from repro_torch.launch.mesh import local
+
+    return sum(local(x).numel() * x.element_size() for x in state_leaves(state).values())
+
+
+def spec_state_bytes(cfg, state, mesh) -> int:
+    """One rank's bytes of ``state`` as ``state_specs`` places them."""
+    from repro_torch.launch.mesh import axis_sizes
+    from repro_torch.models import model
+    from repro_torch.train import train_step as ts
+
+    sizes = axis_sizes(mesh)
+    specs = model.param_specs(state["params"], ts.state_specs(cfg, state, mesh)["params"])
+    total = state["opt"]["step"].element_size()
+    for name, p in state["params"].named_parameters():
+        n = p.numel()
+        for entry in specs[name]:
+            for a in (() if entry is None else (entry,) if isinstance(entry, str) else entry):
+                n //= sizes[a]
+        total += 3 * n * 4  # parameter, mu, nu: float32
+    return total
+
+
+def mesh_train4_rank(rank, tmp, seed) -> dict:
+    """Part (c), one rank of four on (2, 2), under deterministic algorithms
+    (so the run repeats): the steps; rank 0 then runs the same steps with
+    no mesh and loads the (2, 2) checkpoint onto (1, 1)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.ft import elastic
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.train import optimizer, train_step as ts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cfg = get_config(TRAIN["arch"], n_layers=MESH["four_layers"], dtype="float32")
+    steps = MESH["four_steps"]
+    opt_cfg = optimizer.OptConfig(lr=3e-4, warmup_steps=1, total_steps=steps)
+    kind = torch.device(DEVICE).type
+    m22 = init_device_mesh(kind, (2, 2), mesh_dim_names=mesh_lib.AXES)
+    m11 = DeviceMesh(kind, [[0]], mesh_dim_names=mesh_lib.AXES)
+    step_fn = ts.make_train_step(cfg, opt_cfg)
+    batches = [synthetic.token_batch(cfg, "train", MESH["four_batch"], MESH["four_seq"], i,
+                                     seed=seed, device=DEVICE) for i in range(steps)]
+    state = ts.init_state(cfg, seed, opt_cfg, device=DEVICE)
+    state = elastic.reshard_state(state, ts.state_specs(cfg, state, m22), m22)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state_bytes = local_state_bytes(state)
+    spec_bytes = spec_state_bytes(cfg, state, m22)
+    allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, walls = [], [], []
+    for batch in batches:
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    full = {k: mesh_lib.full_value(v) for k, v in state_leaves(state).items()}
+    ckpt = str(Path(tmp) / "ckpt")
+    t0 = time.perf_counter()
+    checkpoint.save(ckpt, steps, state, mesh=m22)
+    save_s = time.perf_counter() - t0
+    out = {"rank": rank, "coordinate": m22.get_coordinate(), "losses": losses,
+           "grad_norms": norms, "step_s": walls,
+           "state_bytes": state_bytes, "spec_bytes": spec_bytes,
+           "allocated_after_sharding": allocated, "peak_mem_bytes": peak, "save_s": save_s}
+    if rank == 0:
+        ref = ts.init_state(cfg, seed, opt_cfg, device=DEVICE)
+        init = {f"params.{n}": p.detach().clone() for n, p in ref["params"].named_parameters()}
+        ref_losses, ref_norms = [], []
+        for batch in batches:
+            ref, m = step_fn(ref, batch)
+            ref_losses.append(float(m["loss"]))
+            ref_norms.append(float(m["grad_norm"]))
+        lr = {k: v.detach() for k, v in state_leaves(ref).items()}
+        keys = [k for k in lr if k.startswith("params.")]
+        out["one_rank_losses"] = ref_losses
+        out["one_rank_grad_norms"] = ref_norms
+        out["param_rel_l2"] = {k: rel_l2(lr[k], full[k]) for k in keys}
+        out["param_max_abs_diff"] = max(float((lr[k] - full[k]).abs().max()) for k in keys)
+        # the control: parameters left at their initial values, which the
+        # parameter check must refuse
+        control = [rel_l2(lr[k], init[k]) for k in keys]
+        out["control_param_rel_l2"] = {"max": max(control), "min": min(control)}
+        del ref, lr, init
+        t0 = time.perf_counter()
+        loaded = checkpoint.load(ckpt, steps, state, mesh=m11,
+                                 specs=ts.state_specs(cfg, state, m11))
+        out["load_11_s"] = time.perf_counter() - t0
+        ll = state_leaves(loaded)
+        out["load_11_bit_identical"] = ll.keys() == full.keys() and all(
+            torch.equal(mesh_lib.local(ll[k]), full[k]) for k in full)
+        del loaded, ll
+    torch.use_deterministic_algorithms(False)
+    return out
+
+
+def phase_mesh(seed: int) -> list:
+    """The multi-card layer.  The parent writes part (a)'s ``SimComm``
+    reference, runs part (a) at P = 1 and part (b) over its one-rank NCCL
+    group and tears the group down; then one spawn of four gloo ranks runs
+    part (a) and part (c).  Lines: ``mesh_train``, ``mesh_msj``,
+    ``mesh_train_4``, ``done``; returns ``mesh_msj`` first (its launches
+    count on the kernels line)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows, P = 2 ** MESH["msj_log2_rows"], MESH["msj_P"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        db_np, sjs, cap, sim_wall = msj_reference(seed, tmp)
+        torch.cuda.empty_cache()
+        mesh = make_host_mesh(DEVICE)
+        nccl = mesh_msj_nccl(db_np, sjs, mesh)
+        del db_np
+        torch.cuda.empty_cache()
+        train_line = mesh_train(seed, mesh)
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+        spawn_s = spawn_ranks(mesh_rank, (free_port(), tmp, cap, P, seed), P)
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(P)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    msj_ranks = [r["msj"] for r in ranks]
+    for r in msj_ranks:
+        path_launches(f"mesh_msj rank {r['rank']}", r["launches"])
+    launches = {k: sum(r["launches"][k] for r in msj_ranks) + nccl["launches"][k]
+                for k in nccl["launches"]}
+    msj_line = {"phase": "mesh", "step": "mesh_msj", "card": nvidia_smi(),
+                "rows_per_relation": rows, "P": P, "backend": "gloo", "forward_cap": cap,
+                "probe_wrapper": "probe_bucketed", "launches": launches, "ranks": msj_ranks,
+                "rank0_wall_s": msj_ranks[0]["wall_s"],
+                "rank0_peak_mem_bytes": msj_ranks[0]["peak_mem_bytes"],
+                "simcomm_wall_s": sim_wall, "spawn_s": spawn_s, "nccl": nccl}
+    emit(msj_line)
+    if not (all(r["bit_identical"] for r in msj_ranks) and nccl["bit_identical"]):
+        raise AssertionError(f"mesh_msj: MeshComm differs from SimComm: {msj_line}")
+
+    four = [r["train_4"] for r in ranks]
+    r0 = four[0]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], r0["one_rank_losses"]))
+    norm_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(r0["grad_norms"], r0["one_rank_grad_norms"]))
+    four_line = {"phase": "mesh", "step": "mesh_train_4", "card": nvidia_smi(),
+                 "arch": TRAIN["arch"], "layers": MESH["four_layers"], "dtype": "float32",
+                 "tf32": False, "deterministic_algorithms": True,
+                 "mesh": {"data": 2, "model": 2}, "backend": "gloo",
+                 "batch": MESH["four_batch"], "seq": MESH["four_seq"], "ranks": four,
+                 "loss_rel_err": loss_err, "grad_norm_rel_err": norm_err,
+                 "param_rel_l2_max": max(r0["param_rel_l2"].values()),
+                 "control_param_rel_l2": r0["control_param_rel_l2"], "tol": MESH_TOL}
+    emit(four_line)
+    if not (all(r["state_bytes"] == r["spec_bytes"] for r in four)
+            and all(r["losses"] == r0["losses"] for r in four)
+            and all(r["grad_norms"] == r0["grad_norms"] for r in four)
+            and loss_err <= MESH_TOL and norm_err <= MESH_TOL
+            and four_line["param_rel_l2_max"] <= MESH_TOL
+            and r0["control_param_rel_l2"]["max"] > MESH_TOL
+            and r0["load_11_bit_identical"]):
+        raise AssertionError(f"mesh_train_4 failed: {four_line}")
+    done = {"phase": "mesh", "step": "done", "seconds": time.perf_counter() - t_phase}
+    emit(done)
+    return [msj_line, train_line, four_line, done]
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2669,6 +3202,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     # the pipeline's probe launches count on the kernels line
     e2e.append(phase_train(args.seed, TRAIN)[0])
+    torch.cuda.empty_cache()
+    # and the mesh path's: every gloo rank's and the NCCL run's
+    e2e.append(phase_mesh(args.seed)[0])
     torch.cuda.empty_cache()
 
     sources = {

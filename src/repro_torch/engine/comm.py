@@ -1,15 +1,20 @@
-"""Communication runner: per-shard stage functions over stacked tensors.
+"""Communication runners: the same per-shard stage functions execute either
 
 * **SimComm** — stacked ``(P, ...)`` tensors on one device; each stage
   runs once per shard in a Python loop and the per-shard results are
   stacked again; ``all_to_all`` is a swap of the two leading axes.  This
   lets one card (or the CPU, in tests) run any shard count, bit-identical
   to a run with one shard per device.
+* **MeshComm** — one shard per rank of a ``torch.distributed``
+  ``DeviceMesh`` axis (or several, flattened major to minor);
+  ``all_to_all`` is ``all_to_all_single`` over that axis's process group.
+  :func:`mesh_pipeline` gathers the ranks' results into the stacked form.
 
 Stage functions are written against shard-local views and a ``shard_id``;
 the runner stitches them together, keeping the paper's map / shuffle /
-reduce structure explicit.  (A ``torch.distributed`` runner with one shard
-per card is later work; ``Comm`` names the runners that exist.)
+reduce structure explicit.  The MSJ operator, the executor and the
+service run on SimComm; nothing in the reference runs them under MeshComm
+either (ROADMAP).
 
 The reference maps stages over the shard axis with ``jax.vmap``.  Here the
 loop is explicit: the stages call data-dependent index operations and the
@@ -18,10 +23,11 @@ batch.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.relation import Relation
 
@@ -54,7 +60,83 @@ class SimComm:
         return out
 
 
-Comm = SimComm
+@dataclass(frozen=True)
+class MeshComm:
+    """One shard per rank over one axis of a ``DeviceMesh``, or a tuple of
+    axes in mesh order, flattened major to minor (every rank must then
+    build the MeshComm: it creates the flattened axis's process groups)."""
+
+    mesh: object  # torch.distributed.device_mesh.DeviceMesh
+    axis: str | tuple[str, ...]
+    group: object = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        axes = self.axes
+        names = list(self.mesh.mesh_dim_names)
+        if len(axes) == 1:
+            group = self.mesh.get_group(axes[0])
+        else:
+            if list(axes) != sorted(axes, key=names.index):
+                raise ValueError(f"axes {axes} are not in mesh order {names}")
+            dims = [names.index(a) for a in axes]
+            rest = [d for d in range(len(names)) if d not in dims]
+            ranks = self.mesh.mesh.permute(*rest, *dims).reshape(-1, self.P)
+            group, _ = dist.new_subgroups_by_enumeration(ranks.tolist())
+        object.__setattr__(self, "group", group)
+
+    @property
+    def axes(self) -> tuple[str, ...]:
+        return (self.axis,) if isinstance(self.axis, str) else tuple(self.axis)
+
+    @property
+    def P(self) -> int:
+        n = 1
+        for a in self.axes:
+            n *= self.mesh.size(list(self.mesh.mesh_dim_names).index(a))
+        return n
+
+    def shard_id(self) -> int:
+        idx = 0
+        for a in self.axes:
+            idx = idx * self.mesh.size(list(self.mesh.mesh_dim_names).index(a)) \
+                + self.mesh.get_local_rank(a)
+        return idx
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """x local: (P, ...) send row j to shard j; receive likewise."""
+        src = _wire(x.contiguous())
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=self.group)
+        return _unwire(out, x.dtype)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """x local -> (P, ...), row j shard j's."""
+        src = _wire(x.contiguous())
+        parts = [torch.empty_like(src) for _ in range(self.P)]
+        dist.all_gather(parts, src, group=self.group)
+        return _unwire(torch.stack(parts), x.dtype)
+
+    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.clone()
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=self.group)
+        return y
+
+    def all_reduce_or(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.to(torch.int32) if x.dtype == torch.bool else x.clone()
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=self.group)
+        return y.to(torch.bool) if x.dtype == torch.bool else y
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """bool has no gloo type: its bytes travel as uint8."""
+    return t.view(torch.uint8) if t.dtype == torch.bool else t
+
+
+def _unwire(t: torch.Tensor, dtype) -> torch.Tensor:
+    return t.view(torch.bool) if dtype == torch.bool else t
+
+
+Comm = SimComm | MeshComm
 
 
 # --------------------------------------------------------------------------
@@ -152,7 +234,10 @@ def run_pipeline(
     ``send`` is either None (no shuffle after this stage) or a tree of
     ``(P, ...)`` buffers to exchange; the exchanged buffers are passed as
     ``carry`` input (tuple ``(recv, carry)``) to the next stage.
-    ``stacked_args`` carries a leading P axis.
+    ``stacked_args`` carries a leading P axis.  Under SimComm the result
+    is stacked too; under MeshComm each rank runs every stage once on its
+    own shard, ``tree_index(stacked_args, rank)``, exchanges each send
+    leaf with ``all_to_all`` and returns its shard's result.
 
     ``tracer`` (a :class:`repro_torch.obs.tracer.Tracer`, DESIGN.md §14)
     records one phase span per stage (named by ``names``, falling back to
@@ -167,7 +252,13 @@ def run_pipeline(
     traced = tracer is not None and getattr(tracer, "enabled", False)
     trace_sync = traced and getattr(tracer, "trace_sync", False)
 
-    def one_stage(stage, carry):
+    def mesh_stage(stage, carry):
+        send, carry = stage(comm.shard_id(), carry)
+        if send is None:
+            return carry
+        return (tree_map(comm.all_to_all, send), carry)
+
+    def sim_stage(stage, carry):
         outs = [stage(p, tree_index(carry, p)) for p in comm.shard_ids()]
         sends = [tree_leaves(o[0]) for o in outs]
         template = outs[0][0]
@@ -185,7 +276,10 @@ def run_pipeline(
             recv.append(comm.exchange(column))
         return (tree_unflatten(template, recv), carry)
 
-    carry = stacked_args
+    if isinstance(comm, MeshComm):
+        one_stage, carry = mesh_stage, tree_index(stacked_args, comm.shard_id())
+    else:
+        one_stage, carry = sim_stage, stacked_args
     for i, stage in enumerate(stages):
         if traced:
             label = names[i] if names and i < len(names) else getattr(
@@ -198,3 +292,16 @@ def run_pipeline(
         else:
             carry = one_stage(stage, carry)
     return carry
+
+
+def mesh_pipeline(mesh, axis, stages: Sequence[Callable]) -> Callable:
+    """``stacked_args -> result``: :func:`run_pipeline` under
+    ``MeshComm(mesh, axis)``, each rank's result gathered into the stacked
+    ``(P, ...)`` form on every rank (the reference's ``shard_map`` with the
+    outputs sharded over ``axis``)."""
+    comm = MeshComm(mesh, axis)
+
+    def run(stacked_args, **kw):
+        return tree_map(comm.all_gather, run_pipeline(comm, stages, stacked_args, **kw))
+
+    return run

@@ -1,5 +1,9 @@
-"""Elastic rescaling and shard-loss recovery for engine relations.
+"""Elastic rescaling: move a run to a different mesh shape, and shard-loss
+recovery for engine relations.
 
+* **Model state** — :func:`reshard_state` places every leaf on the new
+  mesh by its spec (``checkpoint.load`` does the same from disk; this is
+  the in-memory path for a live rescale).
 * **Engine relations** — :func:`repartition_relation` re-partitions an
   SGF relation's rows over a new shard count (P changes with cluster
   size); row placement is hash/block-based so results are identical.
@@ -15,15 +19,31 @@ tensors of one relation are shared by the catalog, the executor's
 environment and its lineage, so an in-place ``data[shard] = 0`` would
 damage the durable source and recovery would restore zeros.  Results stay
 on the device of the relation they are built from.
-
-The model-state half of the reference module (``reshard_state``) waits for
-the port's model zoo.
 """
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from repro_torch.core.relation import Relation
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import model
+
+
+def reshard_state(state, specs, new_mesh):
+    """``state`` (a dict of model modules, tensors or numpy arrays, full or
+    DTensors on another mesh) with every leaf a DTensor on ``new_mesh``,
+    placed by the matching leaf of ``specs`` (for a module, the
+    ``model.partition_specs`` dict of its leaf paths).  New modules and
+    tensors; ``state`` is not written.  A DTensor leaf is gathered on its
+    old mesh first: every rank of that mesh must call."""
+    if isinstance(state, dict):
+        return {k: reshard_state(v, specs[k], new_mesh) for k, v in state.items()}
+    if isinstance(state, nn.Module):
+        return mesh_lib.place_module(state, {
+            name: model.placements(spec, new_mesh)
+            for name, spec in model.param_specs(state, specs).items()}, new_mesh)
+    return mesh_lib.place(state, new_mesh, model.placements(specs, new_mesh))
 
 
 def repartition_relation(rel: Relation, new_P: int, *, partition: str = "block") -> Relation:

@@ -193,21 +193,24 @@ def run_train_loop(
     ckpt_every: int = 50,
     crash_at: int | None = None,
     log_every: int = 10,
+    mesh=None,
 ):
     """Checkpointed training loop with optional crash injection + resume.
 
     Returns (state, history).  If a checkpoint exists in ``ckpt_dir`` the
     loop resumes after its step — calling this twice around a simulated
     crash exercises the restart path end to end.  The checkpoint loads onto
-    the device of the given state's parameters; the reference's ``mesh``
-    (reshard-on-load) waits for the multi-card port.
+    the device of the given state's parameters; with ``mesh`` (a sharded
+    state, every rank calling) it is saved from and loaded onto that mesh,
+    each leaf with the given state's placements.
     """
     from repro_torch.ckpt import checkpoint
 
     start = 0
     last = checkpoint.latest_step(ckpt_dir)
     if last is not None:
-        state = checkpoint.load(ckpt_dir, last, state, device=state["params"].device)
+        state = checkpoint.load(ckpt_dir, last, state, mesh=mesh,
+                                device=state["params"].device)
         start = last
     history = []
     for step in range(start, steps):
@@ -216,7 +219,7 @@ def run_train_loop(
         if crash_at is not None and step + 1 == crash_at:
             raise SimulatedFault(f"injected crash at step {crash_at}")
         if (step + 1) % ckpt_every == 0 or step + 1 == steps:
-            checkpoint.save(ckpt_dir, step + 1, state)
+            checkpoint.save(ckpt_dir, step + 1, state, mesh=mesh)
         if (step + 1) % log_every == 0:
             history.append((step + 1, float(metrics["loss"])))
     return state, history

@@ -6,9 +6,11 @@ reference's ``(d_in, d_out)`` layout and are applied as ``x @ w``, so the
 reference's parameters load without a transpose.  Attention is the
 chunked online softmax of :mod:`repro_torch.models.flash`; nothing of
 shape ``(S, S)`` is materialized.  ``rmsnorm`` carries the reference's
-custom backward.  The reference's sharding hooks
-(``set_activation_batch_axes``, ``constrain_batch``) wait for the
-multi-card port (ROADMAP Queue 1).
+custom backward.  The reference's activation sharding hooks
+(``set_activation_batch_axes``, ``constrain_batch``) act on DTensor
+activations only; no forward of the port calls ``constrain_batch``, since
+the sharded train step runs the forward on each rank's batch shard as
+plain tensors (``repro_torch.train.train_step``).
 """
 from __future__ import annotations
 
@@ -73,6 +75,52 @@ def swiglu(x, w1, w3, w2):
 def gelu_ffn(x, w1, w2):
     # jax.nn.gelu defaults to the tanh approximation
     return F.gelu(x @ w1, approximate="tanh") @ w2
+
+
+# --------------------------------------------------------------------------
+# Activation sharding
+# --------------------------------------------------------------------------
+# Launch code names the batch axes here (``model.batch_axes(mesh)``).  The
+# reference's forwards re-constrain the residual stream at every layer
+# boundary; the port's run on plain local tensors and do not.  The callers
+# are ``moe_sort_local`` and, with ``seq_axis``, the dry-run (ROADMAP
+# Queue 1 item 7).  A DTensor carries its mesh, so no mesh is kept here.
+
+_ACT_BATCH_AXES: tuple | None = None
+_ACT_SEQ_AXIS: str | None = None  # sequence parallelism: seq dim over model
+
+
+def set_activation_batch_axes(axes: tuple | None, seq_axis: str | None = None):
+    global _ACT_BATCH_AXES, _ACT_SEQ_AXIS
+    _ACT_BATCH_AXES = tuple(axes) if axes else None
+    _ACT_SEQ_AXIS = seq_axis
+
+
+def _activation_placements(mesh, ndim: int) -> list:
+    """``Shard(0)`` on the batch axes, ``Shard(1)`` on the sequence axis
+    of a 3-d activation when one is set, ``Replicate()`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = []
+    for a in mesh.mesh_dim_names:
+        if a in _ACT_BATCH_AXES:
+            out.append(Shard(0))
+        elif a == _ACT_SEQ_AXIS and ndim == 3:
+            out.append(Shard(1))
+        else:
+            out.append(Replicate())
+    return out
+
+
+def constrain_batch(x):
+    """A DTensor activation redistributed to its batch dim over the
+    configured axes (and with sequence parallelism its seq dim over
+    ``model``); a plain tensor, or any tensor with no axes set, as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if _ACT_BATCH_AXES is None or not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, _activation_placements(x.device_mesh, x.ndim))
 
 
 # --------------------------------------------------------------------------

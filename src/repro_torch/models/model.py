@@ -7,12 +7,24 @@ The counterpart of ``repro.models.model``'s public functions:
 * ``prefill(cfg, params, batch, max_len)``   — serve: prompt -> cache
 * ``decode_step(cfg, params, cache, tok)``   — serve: one token
 * ``init_cache(cfg, batch, max_len, device=None)``
+* ``partition_specs(cfg, params, mesh)``     — a spec per parameter
+* ``input_specs(cfg, shape)``                — ``meta`` tensor stand-ins
 
 Every family is ported: dense, MoE and VLM (:mod:`transformer`), SSM
 (:mod:`ssm_model`), hybrid (:mod:`hybrid`) and enc-dec (:mod:`encdec`).
-The reference's GSPMD rules (``partition_specs``, ``cache_specs``,
-``batch_specs``, ``input_specs``) wait for the multi-card port (ROADMAP
-Queue 1).
+
+Sharding follows the reference's rules (Megatron + ZeRO-3: column-parallel
+weights shard their output dim over ``model``, row-parallel their input
+dim, and the other dim over the flattened data axes; an axis that does not
+divide a dim is dropped for that dim).  A spec is a tuple with one entry
+per tensor dim: an axis name, a tuple of names, or ``None``.  The rules
+read only the mesh's axis names and sizes, from a ``DeviceMesh`` or a
+plain ``{axis: size}`` dict; :func:`placements` turns a spec into DTensor
+placements.  Specs are keyed by the reference's leaf paths
+(:func:`leaf_paths`) and resolved on the stacked shapes
+(:func:`leaf_shapes`), so they equal the reference's; the port's per-layer
+parameter takes its leaf's spec without the layer axes
+(:func:`param_specs`).
 
 :func:`params_from_numpy` loads the reference's parameter pytree (numpy
 arrays, ``(d_in, d_out)`` matrices, layers stacked on leading axes: ``(L,
@@ -27,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.relation import resolve_device
+from repro_torch.launch.mesh import axis_sizes, full_value
 from repro_torch.models import encdec, hybrid, ssm_model, transformer
 
 #: each family's module and the module class holding its parameters
@@ -67,6 +80,194 @@ def init_cache(cfg, batch: int, max_len: int, *, device=None):
     if cfg.family == "audio":  # 3/4 self positions, 1/4 cross positions
         return m.init_cache(cfg, batch, (max_len * 3) // 4, max_len // 4, device=device)
     return m.init_cache(cfg, batch, max_len, device=device)
+
+
+# --------------------------------------------------------------------------
+# Sharding rules
+# --------------------------------------------------------------------------
+
+# last-n-dims templates per leaf name; "tp" = model axis, "dp" = fsdp axes
+_COL = ("dp", "tp")  # (d_in, d_out): output column-parallel
+_ROW = ("tp", "dp")
+_RULES: dict[str, tuple] = {
+    "embed": ("tp", "dp"),
+    "lm_head": _COL,
+    "wq": _COL, "wk": _COL, "wv": _COL,
+    "w1": _COL, "w3": _COL,
+    "in_proj": _COL, "x_proj": _COL, "dt_proj": _COL,
+    "wo": _ROW, "w2": _ROW, "out_proj": _ROW, "down": _ROW,
+    "router": (None, None),
+    "bq": ("tp",), "bk": ("tp",), "bv": ("tp",),
+    "conv_w": ("tp", None), "conv_b": ("tp",),
+    "A_log": ("tp", None), "D": ("tp",), "dt_bias": ("tp",), "norm_w": ("tp",),
+    "ln1": (None,), "ln2": (None,), "lnx": (None,), "ln": (None,),
+    "final_norm": (None,), "enc_norm": (None,),
+    "q_norm": (None,), "k_norm": (None,),
+}
+# MoE expert stacks (ndim 3 before layer stacking): (E, in, out)
+_MOE_RULES = {
+    "w1": (None, "dp", "tp"), "w3": (None, "dp", "tp"), "w2": (None, "tp", "dp"),
+}
+_MOE_EP_RULES = {
+    "w1": ("tp", "dp", None), "w3": ("tp", "dp", None), "w2": ("tp", None, "dp"),
+}
+
+
+def fsdp_axes(mesh) -> tuple[str, ...]:
+    return tuple(a for a in axis_sizes(mesh) if a != "model")
+
+
+def _entry(axes: tuple):
+    """A spec entry for ``axes``: one name alone, as ``PartitionSpec``
+    writes it."""
+    return axes[0] if len(axes) == 1 else axes
+
+
+def _axis_size(mesh, axes) -> int:
+    if axes is None:
+        return 1
+    axes = (axes,) if isinstance(axes, str) else axes
+    sizes = axis_sizes(mesh)
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    return n
+
+
+def _resolve(template, shape, mesh) -> tuple:
+    """Template ("dp"/"tp"/None per trailing dim) -> spec, with None for
+    the stacked leading dims and each axis that does not divide its dim
+    dropped."""
+    dp = fsdp_axes(mesh)
+    lead = len(shape) - len(template)
+    spec: list = [None] * lead
+    for dim, t in zip(shape[lead:], template):
+        if t == "tp":
+            ax = "model" if dim % _axis_size(mesh, "model") == 0 else None
+        elif t == "dp":
+            ax = _entry(dp) if dim % _axis_size(mesh, dp) == 0 else None
+        else:
+            ax = None
+        spec.append(ax)
+    return tuple(spec)
+
+
+def _leaf_rule(cfg, path: str, shape, mesh) -> tuple:
+    """The spec of the reference's leaf at dotted ``path`` (``layers.attn.wq``)
+    and stacked ``shape``: the reference's ``partition_specs`` rule."""
+    parts = path.split(".")
+    name = parts[-1]
+    if "moe" in parts and name in _MOE_RULES:
+        tmpl = (_MOE_EP_RULES if cfg.expert_parallel else _MOE_RULES)[name]
+        return _resolve(tmpl, shape, mesh)
+    tmpl = _RULES.get(name)
+    if tmpl is None or len(tmpl) > len(shape):
+        return (None,) * len(shape)
+    return _resolve(tmpl, shape, mesh)
+
+
+def partition_specs(cfg, params, mesh) -> dict:
+    """``{leaf path: spec}`` for a model module (real or on ``meta``): the
+    reference's ``partition_specs`` pytree, flattened to its dotted paths
+    (``layers.attn.wq``), each spec over the stacked leaf."""
+    return {path: _leaf_rule(cfg, path, shape, mesh)
+            for path, shape in leaf_shapes(params).items()}
+
+
+def param_specs(params, specs: dict) -> dict:
+    """``{parameter name: spec}``: each parameter, one layer of its stacked
+    leaf, takes the leaf's spec without the layer axes.  Where the
+    reference's rule shards a layer axis (the Mamba-2 ``A_log`` ``(H,)``
+    meets the 2-d template meant for Mamba-1's ``(d_inner, N)``), each
+    layer's parameter is held whole."""
+    out = {}
+    for name, _ in params.named_parameters():
+        path, index = _tree_name(name)
+        out[name] = tuple(specs[path][len(index):])
+    return out
+
+
+def placements(spec, mesh) -> list:
+    """DTensor placements of ``spec``: ``Shard(d)`` on each mesh dim that
+    shards tensor dim ``d``, ``Replicate()`` elsewhere.  A dim over several
+    axes (``("pod", "data")``) must name them in mesh order: DTensor then
+    shards it major to minor, as JAX does."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(axis_sizes(mesh))
+    out = [Replicate() for _ in names]
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        if list(axes) != sorted(axes, key=names.index):
+            raise ValueError(f"axes {axes} are not in mesh order {names}")
+        for a in axes:
+            out[names.index(a)] = Shard(d)
+    return out
+
+
+def batch_axes(mesh) -> tuple[str, ...]:
+    return fsdp_axes(mesh)
+
+
+def batch_specs(cfg, batch: dict, mesh) -> dict:
+    """Shard every batch leaf on its leading (global-batch) dim."""
+    ba = batch_axes(mesh)
+
+    def rule(leaf):
+        if leaf.shape and leaf.shape[0] % _axis_size(mesh, ba) == 0:
+            return (_entry(ba),) + (None,) * (len(leaf.shape) - 1)
+        return (None,) * len(leaf.shape)
+
+    return {k: rule(v) for k, v in batch.items()}
+
+
+def cache_specs(cfg, cache: dict, mesh) -> dict:
+    """Decode caches: the batch dim over the data axes and the last dim
+    over ``model`` when it divides (else the one before it).  Caches put
+    the batch right after the stacked layer axes: dim 1, or dim 2 for the
+    hybrid's grouped ``conv``/``ssm`` state."""
+    ba = batch_axes(mesh)
+    nb = _axis_size(mesh, ba)
+    nm = _axis_size(mesh, "model")
+
+    def rule(name, leaf):
+        if name == "len" or not leaf.shape:
+            return (None,) * len(leaf.shape)
+        spec: list = [None] * len(leaf.shape)
+        bdim = 2 if len(leaf.shape) >= 5 and name in ("conv", "ssm") else 1
+        if len(leaf.shape) > bdim and leaf.shape[bdim] % nb == 0:
+            spec[bdim] = _entry(ba)
+        if leaf.shape[-1] % nm == 0:
+            spec[-1] = "model"
+        elif len(leaf.shape) >= 2 and leaf.shape[-2] % nm == 0:
+            spec[-2] = "model"
+        return tuple(spec)
+
+    return {k: rule(k, v) for k, v in cache.items()}
+
+
+def input_specs(cfg, shape) -> dict:
+    """Global-batch ``meta`` tensors for the model inputs of one
+    :class:`~repro_torch.configs.base.ShapeSpec` (nothing is allocated).
+    For decode shapes: the ``(batch, 1)`` token and the cache of the
+    stated context length, built on ``meta`` by :func:`init_cache`."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = transformer.compute_dtype(cfg)
+
+    def sds(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "vlm":
+            return {"tokens": sds((B, S - cfg.frontend_tokens), torch.int32),
+                    "embeds": sds((B, cfg.frontend_tokens, cfg.d_model), dt)}
+        if cfg.family == "audio":
+            return {"tokens": sds((B, (S * 3) // 4), torch.int32),
+                    "embeds": sds((B, S // 4, cfg.d_model), dt)}
+        return {"tokens": sds((B, S), torch.int32)}
+    return {"tokens": sds((B, 1), torch.int32), "cache": init_cache(cfg, B, S, device="meta")}
 
 
 # --------------------------------------------------------------------------
@@ -157,12 +358,14 @@ def params_from_numpy(cfg, tree: dict, device=None, dtype=None):
 
 def params_to_numpy(params) -> dict:
     """The inverse of :func:`params_from_numpy`: the reference's pytree of
-    float32 numpy arrays, layers stacked on the leading axes."""
+    float32 numpy arrays, layers stacked on the leading axes (DTensor
+    parameters gathered to their full values: a collective).  The arrays
+    are copies, never views of the parameters."""
     flat: dict = {}
     stacked: dict = {}
     for name, p in params.named_parameters():
         path, index = _tree_name(name)
-        a = p.detach().to("cpu", torch.float32).numpy()
+        a = full_value(p).detach().to("cpu", torch.float32, copy=True).numpy()
         if index:
             stacked.setdefault(path, {})[index] = a
         else:

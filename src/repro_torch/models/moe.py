@@ -17,6 +17,8 @@ unspecified): the same experts are chosen, so the same pairs drop.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -126,10 +128,25 @@ def moe_sort(p: MoE, x, top_k: int, capacity_factor: float = 1.25):
 
 
 def moe_sort_local(p: MoE, x, top_k: int, capacity_factor: float = 1.25):
-    """Sort dispatch with shard-local routing.  On one card there is no
-    batch shard, and the reference then runs :func:`moe_sort` itself; the
-    mesh case waits for the multi-card port (ROADMAP Queue 1 item 8)."""
-    return moe_sort(p, x, top_k, capacity_factor)
+    """Sort dispatch with shard-local token routing (the reference's
+    ``shard_map`` body): with batch axes set and ``x`` a DTensor sharded on
+    its batch dim, each rank runs :func:`moe_sort` on its own tokens, with
+    the experts gathered to their full values and the capacity per shard,
+    and the result keeps ``x``'s batch sharding.  A plain ``x`` is taken as
+    the rank's own shard already (the sharded train step's activations),
+    and with no batch axes set this is :func:`moe_sort`."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import full_value
+    from repro_torch.models import layers
+
+    if layers._ACT_BATCH_AXES is None or not isinstance(x, DTensor):
+        return moe_sort(p, x, top_k, capacity_factor)
+    x = layers.constrain_batch(x)
+    experts = SimpleNamespace(**{n: full_value(getattr(p, n))
+                                 for n in ("router", "w1", "w3", "w2")})
+    out = moe_sort(experts, x.to_local(), top_k, capacity_factor)
+    return DTensor.from_local(out, x.device_mesh, x.placements, run_check=False)
 
 
 def moe_ffn(p: MoE, x, top_k: int, impl: str, capacity_factor: float = 1.25):

@@ -6,13 +6,29 @@ as in the reference: ``params`` (the model, float32 master weights, which
 the forward casts to ``cfg.dtype`` at each use), ``opt`` = {``mu``, ``nu``,
 ``step``} and, with compression, ``err``.  ``make_train_step`` returns an
 eager function ``(state, batch) -> (state, metrics)`` that updates the
-state's tensors in place.  The reference's ``state_specs`` (its GSPMD
-shardings) waits for the multi-card port (ROADMAP Queue 1).
+state's tensors in place.
+
+A sharded state (``elastic.reshard_state`` with :func:`state_specs`) holds
+DTensors, each rank the shards the reference's per-chip arguments hold.
+The step then runs FSDP-style data parallelism: every parameter is
+gathered to its full value (``launch.mesh.gathered_module``), the rank
+runs the forward and backward of the unsharded step on its batch shard
+(the batch is the global batch, every rank the same, or DTensors sharded
+over the batch axes), and each full gradient, a ``Partial`` sum over the
+batch axes, is reduce-scattered into its parameter's placement and divided
+by the number of batch shards.  Every row has the same number of targets
+and every shard the same number of rows, so the mean of the shards' mean
+losses is the global mean.  A global batch whose microbatches do not split
+evenly over the batch axes is not sharded: every rank runs all of it, as
+the reference's ``batch_specs`` then replicates it.  The same function
+runs both states.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import model
 from repro_torch.train import grad_compress, optimizer
 
@@ -29,25 +45,93 @@ def init_state(cfg, seed: int, opt_cfg: optimizer.OptConfig, *, compress_frac: f
     return state
 
 
+def _loss_and_grads(cfg, params, batch: dict, microbatches: int):
+    """Mean loss and float32 gradients (a list in ``parameters()`` order)
+    of ``batch`` split into ``microbatches`` along its leading axis;
+    autograd sums their gradients in the parameters' ``.grad``."""
+    parts = zip(*(torch.chunk(v, microbatches) for v in batch.values()))
+    loss = 0
+    for part in parts:
+        mb = dict(zip(batch, part))
+        l_mb = model.loss_fn(cfg, params, mb)
+        l_mb.backward()
+        loss = loss + l_mb.detach()
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params.parameters()]
+    params.zero_grad(set_to_none=True)
+    if microbatches > 1:
+        loss = loss / microbatches
+        grads = [g / microbatches for g in grads]
+    return loss, grads
+
+
+def _local_batch(batch: dict, mesh, microbatches: int) -> tuple[dict, int]:
+    """This rank's part of ``batch`` and the number of batch shards: a
+    DTensor's local rows, or of a plain (global) tensor, the rank's share
+    of each microbatch along the batch axes, so that its microbatches are
+    the reference's, sharded.  Shares must be equal (see the module doc):
+    a plain batch that does not split so is run whole by every rank (one
+    shard); a DTensor batch must split so."""
+    axes = model.batch_axes(mesh)
+    sizes = mesh_lib.axis_sizes(mesh)
+    n, r = 1, 0
+    for a in axes:  # the rank's index over the flattened batch axes
+        n, r = n * sizes[a], r * sizes[a] + mesh.get_local_rank(a)
+    rows = next(iter(batch.values())).shape[0]
+    if rows % microbatches:
+        raise ValueError(f"a batch of {rows} rows does not split into "
+                         f"{microbatches} microbatches")
+    even = rows % (n * microbatches) == 0
+    if not even and any(isinstance(v, DTensor) for v in batch.values()):
+        raise ValueError(f"a DTensor batch of {rows} rows does not split evenly into "
+                         f"{microbatches} microbatches on each of {n} batch shards")
+    if not even:
+        return batch, 1
+
+    def mine(v):
+        if isinstance(v, DTensor):
+            return v.to_local()
+        return torch.cat([torch.chunk(mb, n)[r] for mb in torch.chunk(v, microbatches)])
+
+    return {k: mine(v) for k, v in batch.items()}, n
+
+
+def _sharded_loss_and_grads(cfg, params, batch: dict, microbatches: int):
+    """The global mean loss and each parameter's gradient, a DTensor in its
+    placement, of a module of DTensor parameters (see the module doc)."""
+    mesh = next(params.parameters()).device_mesh
+    axes = model.batch_axes(mesh)
+    mine, n = _local_batch(batch, mesh, microbatches)
+    work = mesh_lib.gathered_module(params)
+    loss, full = _loss_and_grads(cfg, work, mine, microbatches)
+    del work
+    # each rank's value is its batch shard's part of a sum over the batch
+    # axes, or with one shard the whole value
+    summed = [Partial() if a in axes and n > 1 else Replicate() for a in mesh.mesh_dim_names]
+    grads = []
+    for p in params.parameters():
+        g = full.pop(0)  # each full gradient is freed once it is redistributed
+        g = DTensor.from_local(g, mesh, summed, run_check=False).redistribute(
+            mesh, p.placements)
+        grads.append(g / n if n > 1 else g)
+    loss = DTensor.from_local(loss, mesh, summed, run_check=False).full_tensor()
+    return (loss / n if n > 1 else loss), grads
+
+
+def loss_and_grads(cfg, params, batch: dict, microbatches: int = 1):
+    """(mean loss, gradients in ``parameters()`` order) of one step, for a
+    plain module or one of DTensor parameters (gradients then DTensors in
+    the parameters' placements)."""
+    if isinstance(next(params.parameters()), DTensor):
+        return _sharded_loss_and_grads(cfg, params, batch, microbatches)
+    return _loss_and_grads(cfg, params, batch, microbatches)
+
+
 def make_train_step(cfg, opt_cfg: optimizer.OptConfig, *, microbatches: int = 1,
                     compress_frac: float = 0.0):
     def train_step(state, batch):
         params = state["params"]
-        # split the global batch into microbatches along its leading axis;
-        # autograd sums their float32 gradients in the parameters' .grad
-        parts = zip(*(torch.chunk(v, microbatches) for v in batch.values()))
-        loss = 0
-        for part in parts:
-            mb = dict(zip(batch, part))
-            l_mb = model.loss_fn(cfg, params, mb)
-            l_mb.backward()
-            loss = loss + l_mb.detach()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params.parameters()]
-        params.zero_grad(set_to_none=True)
-        if microbatches > 1:
-            loss = loss / microbatches
-            grads = [g / microbatches for g in grads]
+        loss, grads = loss_and_grads(cfg, params, batch, microbatches)
 
         metrics = {"loss": loss}
         new_state = dict(state)
@@ -62,3 +146,13 @@ def make_train_step(cfg, opt_cfg: optimizer.OptConfig, *, microbatches: int = 1,
         return new_state, metrics
 
     return train_step
+
+
+def state_specs(cfg, state: dict, mesh) -> dict:
+    """Specs for the full train state: the parameters' for the parameters,
+    the moments and ``err``; ``opt.step`` replicated."""
+    pspecs = model.partition_specs(cfg, state["params"], mesh)
+    specs = {"params": pspecs, "opt": {"mu": pspecs, "nu": pspecs, "step": ()}}
+    if "err" in state:
+        specs["err"] = pspecs
+    return specs

@@ -52,6 +52,7 @@ from repro_torch.core.executor import (  # noqa: E402
 from repro_torch.core.relation import db_from_dict  # noqa: E402
 from repro_torch.engine.comm import SimComm  # noqa: E402
 from repro_torch.obs.perfetto import audit_trace  # noqa: E402
+from test_torch_models import one_thread  # noqa: E402, F401
 
 P = 2
 XY = ("x", "y")

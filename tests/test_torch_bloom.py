@@ -18,6 +18,7 @@ from hypothesis import given, settings, strategies as st  # noqa: E402
 from repro.kernels.bloom import ops as jops  # noqa: E402
 from repro.kernels.bloom import ref as jref  # noqa: E402
 from repro_torch.kernels.bloom import ops, ref  # noqa: E402
+from test_torch_models import one_thread  # noqa: E402, F401
 
 EXTREMES = np.array([-(2**31), -(2**31) + 1, -2, -1, 0, 1, 2**31 - 2, 2**31 - 1], np.int32)
 

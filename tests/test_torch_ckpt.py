@@ -31,6 +31,7 @@ from repro_torch.ft import supervisor  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import model  # noqa: E402
 from repro_torch.train import optimizer, train_step as ts  # noqa: E402
+from test_torch_models import one_thread  # noqa: E402, F401
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -151,11 +152,12 @@ def test_launcher_as_a_module(tmp_path, with_ckpt):
             "--device", "cpu", "--steps", "3", "--batch", "2", "--seq", "32"]
     if with_ckpt:
         args += ["--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
-    out = subprocess.run(args, env={"PYTHONPATH": str(SRC), "PATH": ""}, capture_output=True,
-                         text=True, timeout=120)
+    out = subprocess.run(args, env={"PYTHONPATH": str(SRC), "PATH": "", "OMP_NUM_THREADS": "1"},
+                         capture_output=True, text=True, timeout=120)  # as one_thread
     assert out.returncode == 0, out.stderr
     lines = out.stdout.splitlines()
-    assert lines[0].startswith("arch=qwen3-0.6b-smoke params=0.4M device=cpu batch=2 seq=32")
+    assert lines[0].startswith(
+        "arch=qwen3-0.6b-smoke params=0.4M mesh={'data': 1, 'model': 1} batch=2 seq=32")
     assert lines[-1] == "done"
     if with_ckpt:
         assert sorted(os.listdir(tmp_path)) == ["step_00000002", "step_00000003"]

@@ -522,3 +522,87 @@ def test_filter_corpus_on_card_equals_cpu(cuda):
     assert got.is_cuda and torch.equal(got.cpu(), want)
     for k in ("jobs", "bytes_shuffled", "input_rows"):
         assert summary[k] == want_summary[k]
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """The host mesh at world size 1 over NCCL (``make_host_mesh`` starts
+    the one-rank group), torn down after the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: NCCL runs on the card")
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh = mesh_lib.make_host_mesh()
+    yield mesh
+    dist.destroy_process_group()
+
+
+def test_meshcomm_over_nccl_equals_simcomm(nccl_mesh):
+    """MeshComm's primitives at world size 1 over NCCL, and the A3 MSJ
+    stages through ``run_pipeline`` under it against ``SimComm(1)``, bit
+    for bit, the probe kernel launched."""
+    import torch.distributed as dist
+
+    from repro_torch.core import msj
+    from repro_torch.engine.comm import MeshComm, run_pipeline
+
+    assert dist.get_backend() == "nccl"
+    comm = MeshComm(nccl_mesh, "data")
+    x = torch.arange(12, dtype=torch.int32, device="cuda").reshape(1, 12)
+    b = x % 3 == 0
+    assert comm.P == 1 and comm.shard_id() == 0
+    assert torch.equal(comm.all_to_all(x), x) and torch.equal(comm.all_to_all(b), b)
+    assert torch.equal(comm.all_gather(x[0]), x) and torch.equal(comm.all_reduce_sum(x), x)
+    assert torch.equal(comm.all_reduce_or(b), b) and torch.equal(comm.all_reduce_or(x), x)
+
+    qs = queries.make_queries("A3")
+    sjs = [sj for q in qs for sj in semijoins_of(q)]
+    db = db_from_dict(queries.gen_db(qs, n_guard=4096, n_cond=4096, seed=1), P=1, device="cuda")
+    spec = msj.make_spec(sjs)
+    cap = msj.count_forward_cap(spec, db, SimComm(1))
+    out = {}
+    for label, c in (("sim", SimComm(1)), ("mesh", comm)):
+        kit = msj._MSJKit(db, spec, c, cap, probe_fn=ops.probe_bucketed)
+        before = ops.probe_bucketed.launches
+        got = run_pipeline(c, [kit.stage_map, kit.stage_probe, kit.stage_out], kit.stacked)
+        assert ops.probe_bucketed.launches > before
+        out[label] = got
+    (want, want_stats), (got, got_stats) = out["sim"], out["mesh"]
+    for name in want:
+        assert torch.equal(want[name].data[0], got[name].data)
+        assert torch.equal(want[name].valid[0], got[name].valid)
+    for k in want_stats:
+        assert torch.equal(want_stats[k][0], got_stats[k]), k
+
+
+def test_sharded_train_step_over_nccl_equals_unsharded(nccl_mesh):
+    """qwen3-0.6b SMOKE on the (1, 1) mesh: two steps with microbatches
+    and compression, bit for bit the unsharded step's."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.ft import elastic
+    from repro_torch.models import model
+    from repro_torch.train import optimizer, train_step as ts
+
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    opt = optimizer.OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    step = ts.make_train_step(cfg, opt, microbatches=2, compress_frac=0.1)
+    plain = ts.init_state(cfg, 0, opt, compress_frac=0.1, device="cuda")
+    sharded = ts.init_state(cfg, 0, opt, compress_frac=0.1, device="cuda")
+    sharded = elastic.reshard_state(sharded, ts.state_specs(cfg, sharded, nccl_mesh), nccl_mesh)
+    for i in range(2):
+        batch = synthetic.token_batch(cfg, "train", 4, 64, i, device="cuda")
+        plain, m = step(plain, batch)
+        sharded, ms = step(sharded, batch)
+        assert float(m["loss"]) == float(ms["loss"])
+    for key in ("params", "err"):
+        want, got = model.params_to_numpy(plain[key]), model.params_to_numpy(sharded[key])
+        assert all(np.array_equal(a, b) for a, b in zip(_leaves(want), _leaves(got)))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]

@@ -21,6 +21,7 @@ from repro.data import pipeline as rpipeline  # noqa: E402
 from repro.data import synthetic as rsynthetic  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.data import pipeline, synthetic  # noqa: E402
+from test_torch_models import one_thread  # noqa: E402, F401
 
 #: one arch per family: the plain split (dense, MoE, SSM, hybrid) and the
 #: two frontend splits

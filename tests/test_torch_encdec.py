@@ -26,6 +26,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.models import encdec, model, transformer  # noqa: E402
 from repro_torch.serve.serve_step import greedy_generate  # noqa: E402
 from test_torch_models import reference_tree, rel_err, t  # noqa: E402
+from test_torch_models import one_thread  # noqa: E402, F401
 
 ARCHS = ["phi-3-vision-4.2b", "seamless-m4t-medium"]
 TOL = 1e-5  # max |Δ| / max |logit|, float32

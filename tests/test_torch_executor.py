@@ -45,6 +45,7 @@ from repro_torch.core.executor import (  # noqa: E402
 from repro_torch.core.relation import Relation, db_from_reference  # noqa: E402
 from repro_torch.engine.comm import SimComm  # noqa: E402
 from repro_torch.kernels.msj_probe import ops  # noqa: E402
+from test_torch_models import one_thread  # noqa: E402, F401
 
 P = 2
 N = 64

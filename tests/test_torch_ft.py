@@ -29,6 +29,7 @@ from repro_torch.core.planner import job_reads, plan_par  # noqa: E402
 from repro_torch.core.relation import Relation, db_from_reference  # noqa: E402
 from repro_torch.engine.comm import SimComm  # noqa: E402
 from repro_torch.ft import elastic, supervisor  # noqa: E402
+from test_torch_models import one_thread  # noqa: E402, F401
 
 
 def _pair(rows, **kw):

@@ -10,6 +10,7 @@ jnp = pytest.importorskip("jax.numpy")
 
 from repro.engine import hashing as ref  # noqa: E402
 from repro_torch.engine import hashing as port  # noqa: E402
+from test_torch_models import one_thread  # noqa: E402, F401
 
 EDGES = np.array(
     [-(2**31), -(2**31) + 1, -2, -1, 0, 1, 2, 0x7FFFFFFE, 0x7FFFFFFF, 0x7FEB352D],

@@ -21,6 +21,7 @@ from repro.models import hybrid as rhybrid  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.models import hybrid, model  # noqa: E402
 from test_torch_models import F32_TOL, _serve_both, reference_tree, rel_err, t  # noqa: E402
+from test_torch_models import one_thread  # noqa: E402, F401
 
 LAYERS = [5, 4]  # SMOKE: 2 groups of 2 and a tail layer; 2 groups, no tail
 

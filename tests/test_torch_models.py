@@ -37,6 +37,18 @@ F32_TOL = 1e-4  # max |Δ| / max |ref|, float32
 BF16_TOL = 2e-2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread for the module; the port's other CPU test
+    files import this fixture.  At SMOKE width torch's default pool (a
+    thread per core) costs more than it gives, and beside the suite's other
+    workers its spinning threads take their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rel_err(want, got) -> float:
     want = np.asarray(want, np.float32)
     got = np.asarray(got, np.float32)

@@ -19,6 +19,7 @@ from repro.models import moe as rmoe  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.models import model, moe  # noqa: E402
 from test_torch_models import F32_TOL, _serve_both, reference_tree, rel_err, t  # noqa: E402
+from test_torch_models import one_thread  # noqa: E402, F401
 
 MOE = ["olmoe-1b-7b", "mixtral-8x7b"]
 

@@ -36,6 +36,7 @@ from repro_torch.core.eval_op import EvalUnit, run_eval  # noqa: E402
 from repro_torch.core.relation import db_from_reference  # noqa: E402
 from repro_torch.engine.comm import SimComm  # noqa: E402
 from repro_torch.kernels.msj_probe import ops  # noqa: E402
+from test_torch_models import one_thread  # noqa: E402, F401
 
 P = 2
 N = 96

@@ -47,6 +47,7 @@ from repro_torch.core.relation import db_from_reference  # noqa: E402
 from repro_torch.engine.comm import SimComm  # noqa: E402
 from repro_torch.ft.supervisor import FTStats  # noqa: E402
 from repro_torch.obs.tracer import Span  # noqa: E402
+from test_torch_models import one_thread  # noqa: E402, F401
 
 GOLDEN = Path(__file__).parent / "data" / "golden_straggler.trace.json"
 

@@ -22,6 +22,7 @@ from repro.kernels.msj_probe import ops as jops  # noqa: E402
 from repro.kernels.msj_probe import ref as jref  # noqa: E402
 from repro_torch.core.msj import probe_dense, probe_sorted  # noqa: E402
 from repro_torch.kernels.msj_probe import ops, ref  # noqa: E402
+from test_torch_models import one_thread  # noqa: E402, F401
 
 
 def _case(rng, nb, np_, kw, key_range):

@@ -17,6 +17,7 @@ from repro_torch.core.relation import (  # noqa: E402
     resolve_device,
 )
 from repro_torch.engine import shuffle  # noqa: E402
+from test_torch_models import one_thread  # noqa: E402, F401
 
 
 def _same(a_jax, b_torch):

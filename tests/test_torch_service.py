@@ -40,6 +40,7 @@ from repro_torch.core.executor import ExecutorConfig, PermanentFault  # noqa: E4
 from repro_torch.core.planner import job_reads  # noqa: E402
 from repro_torch.engine.comm import SimComm  # noqa: E402
 from repro_torch import service as tsvc  # noqa: E402
+from test_torch_models import one_thread  # noqa: E402, F401
 
 P = 4
 N = 256

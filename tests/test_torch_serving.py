@@ -27,6 +27,7 @@ from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import model  # noqa: E402
 from repro_torch.serve import batcher  # noqa: E402
 from repro_torch.serve.serve_step import greedy_generate, make_decode, make_prefill  # noqa: E402
+from test_torch_models import one_thread  # noqa: E402, F401
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 FAMILIES = ["olmoe-1b-7b", "falcon-mamba-7b", "zamba2-7b"]  # MoE, SSM, hybrid
@@ -189,7 +190,8 @@ def test_launcher_module_and_card_default(monkeypatch):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "deepseek-67b", "--smoke",
          "--device", "cpu", "--requests", "2", "--max-len", "24", "--max-new", "3"],
-        env={"PYTHONPATH": str(SRC), "PATH": ""}, capture_output=True, text=True, timeout=120,
+        env={"PYTHONPATH": str(SRC), "PATH": "", "OMP_NUM_THREADS": "1"},  # as one_thread
+        capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
     assert "served 2 requests / 6 tokens" in out.stdout

@@ -21,6 +21,7 @@ from repro.models import ssm as rssm  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.models import model, ssm, ssm_model  # noqa: E402
 from test_torch_models import F32_TOL, _serve_both, reference_tree, rel_err, t  # noqa: E402
+from test_torch_models import one_thread  # noqa: E402, F401
 
 #: bf16 prefill + decode logits, falcon-mamba SMOKE, max |Δ| / max |logit|:
 #: measured 0.0064 on this test's inputs (0.0033-0.0068 over three seeds

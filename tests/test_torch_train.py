@@ -32,6 +32,7 @@ from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.models import flash, layers, model  # noqa: E402
 from repro_torch.train import grad_compress, optimizer, train_step as ts  # noqa: E402
 from test_torch_models import reference_tree, t  # noqa: E402
+from test_torch_models import one_thread  # noqa: E402, F401
 
 VJP_TOL = 1e-5  # max |Δg| / max |g|, per output
 LOSS_TOL = 1e-5  # relative
