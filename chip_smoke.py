@@ -160,6 +160,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    each parameter leaf within 1e-5 in |Δ|₂ / |p|₂, the (2, 2) checkpoint
    loaded onto (1, 1) bit for bit.
 
+12. ``dryrun`` — the multi-pod dry-run (``repro_torch.launch.dryrun``,
+   ``launch.opcost``, ``launch.roofline``) held to real steps.  Two spawned
+   processes trace, each as rank 0 of a fake process group on a fake
+   (1, 1) mesh, qwen3-0.6b's train step at the ``train`` batch (8 × 4096,
+   2 microbatches, full remat) and its decode step at batch 8 against a
+   32,768-token cache (about 30 GB in bf16), while the script runs both for
+   real on the (1, 1) NCCL mesh, each once under ``FlopCounterMode`` and
+   once timed: the traced matmul FLOPs must equal ``FlopCounterMode``'s,
+   the predicted peak above the step's start must lie within 10 % of
+   ``max_memory_allocated``'s, and the measured step must take at least
+   ``step_lower_bound_s`` (the ratio is printed).  Two more processes run
+   the CLI for qwen3-0.6b ``train_4k`` on the production meshes (16, 16)
+   and (2, 16, 16) on fake groups of 256 and 512 ranks; each record is
+   printed.  No kernel of the repo is on these paths.
+
 Then a ``kernels`` JSON line (``launches`` count the pipeline's and the
 mesh ranks' too), the
 raw ``nvidia-smi`` name/power line, and as the last line ``{"ok": true,
@@ -172,6 +187,7 @@ import argparse
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -3100,6 +3116,246 @@ def phase_mesh(seed: int) -> list:
 
 
 # --------------------------------------------------------------------------
+# phase 12: the dry-run's counts held to real steps
+# --------------------------------------------------------------------------
+
+#: the dryrun phase: (a) qwen3-0.6b's train step at the train phase's batch
+#: and (b) its decode step against a full 32k cache, each traced on fake
+#: tensors on a fake (1, 1) mesh in a spawned process and run for real on
+#: the (1, 1) NCCL mesh; (c) the CLI on the production meshes
+DRYRUN = {"arch": "qwen3-0.6b", "train_batch": 8, "train_seq": 4096,
+          "decode_batch": 8, "decode_ctx": 32768, "cli_shape": "train_4k",
+          "timeout_s": 400}
+PEAK_TOL = 0.10  # |predicted - measured| / measured peak above the step's start
+
+
+def dryrun_shape(kind: str):
+    from repro_torch.configs import ShapeSpec
+
+    if kind == "train":
+        return ShapeSpec(f"train_{DRYRUN['train_batch']}x{DRYRUN['train_seq']}",
+                         DRYRUN["train_seq"], DRYRUN["train_batch"], "train")
+    return ShapeSpec(f"decode_{DRYRUN['decode_batch']}x{DRYRUN['decode_ctx']}",
+                     DRYRUN["decode_ctx"], DRYRUN["decode_batch"], "decode")
+
+
+def dryrun_child(kind: str, path: str, device: str) -> None:
+    """A spawned process: rank 0 of a fake group of one on a fake (1, 1)
+    mesh (the fake group must be the process's default group) traces the
+    ``kind`` step of ``dryrun_shape`` on fake ``device`` tensors and writes
+    its record to ``path``."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import dryrun, mesh as mesh_lib
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(1)
+    mesh_lib.make_fake_group(1)
+    mesh = init_device_mesh(device, (1, 1), mesh_dim_names=mesh_lib.AXES)
+    rec = dryrun.run_cell(DRYRUN["arch"], dryrun_shape(kind), mesh=mesh, device=device,
+                          verbose=False)
+    Path(path).write_text(json.dumps(rec))
+
+
+def wrap_11(tree: dict, specs: dict, mesh) -> dict:
+    """Each tensor of ``tree`` as a DTensor on the (1, 1) mesh in its
+    spec's placements, without a copy (every shard is the whole tensor)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import model
+
+    return {k: DTensor.from_local(v, mesh, model.placements(specs[k], mesh), run_check=False)
+            for k, v in tree.items()}
+
+
+def real_step(fn) -> dict:
+    """``fn()`` once under ``FlopCounterMode``, then once timed (host
+    clock to a synchronize) with the peak memory above its start."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        out = fn()
+    del out
+    gc.collect()
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - start
+    del out
+    return {"flop_counter_flops": fc.get_total_flops(), "step_s": wall,
+            "allocated_at_start_bytes": start, "peak_above_start_bytes": peak}
+
+
+def dryrun_real(seed: int, mesh) -> dict:
+    """Parts (a) and (b) for real on the (1, 1) mesh: the same state,
+    batch and cache as the traces, placed by the same specs."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.ft import elastic
+    from repro_torch.models import model
+    from repro_torch.train import optimizer, train_step as ts
+
+    cfg = get_config(DRYRUN["arch"])
+    out = {}
+    opt_cfg = optimizer.OptConfig()
+    state = ts.init_state(cfg, seed, opt_cfg, device=DEVICE)
+    state = elastic.reshard_state(state, ts.state_specs(cfg, state, mesh), mesh)
+    batch = synthetic.token_batch(cfg, "train", DRYRUN["train_batch"], DRYRUN["train_seq"], 0,
+                                  seed=seed, device=DEVICE)
+    batch = elastic.reshard_state(batch, model.batch_specs(cfg, batch, mesh), mesh)
+    step = ts.make_train_step(cfg, opt_cfg, microbatches=cfg.train_microbatches)
+    holder = {"state": state}
+
+    def train():
+        holder["state"], m = step(holder["state"], batch)
+        return float(m["loss"])
+
+    out["train"] = real_step(train)
+    del state, holder, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    B, ctx = DRYRUN["decode_batch"], DRYRUN["decode_ctx"]
+    params = model.init_params(cfg, seed, device=DEVICE)
+    params = elastic.reshard_state({"params": params},
+                                   {"params": model.partition_specs(cfg, params, mesh)},
+                                   mesh)["params"]
+    cache = model.init_cache(cfg, B, ctx, device=DEVICE)
+    cache = wrap_11(cache, model.cache_specs(cfg, cache, mesh), mesh)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (B, 1), generator=gen, device=DEVICE,
+                           dtype=torch.int32)
+    tokens = wrap_11({"tokens": tokens}, model.batch_specs(cfg, {"tokens": tokens}, mesh),
+                     mesh)["tokens"]
+
+    def decode():
+        with torch.no_grad():
+            return model.decode_step(cfg, params, cache, tokens)
+
+    out["decode"] = real_step(decode)
+    out["decode_cache_bytes"] = sum(v.to_local().numel() * v.element_size()
+                                    for v in cache.values())
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dryrun(seed: int) -> list:
+    """The dry-run (``repro_torch.launch.dryrun``) held to real steps on
+    the card: the traced matmul FLOPs equal ``FlopCounterMode``'s, the
+    predicted peak is within ``PEAK_TOL`` of the measured one, and the
+    measured step takes at least the roofline's lower bound; then the
+    CLI on the production meshes.  Every trace runs in a process of its
+    own, all started together at the phase's start."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    ctx = multiprocessing.get_context("spawn")
+    kind_dev = torch.device(DEVICE).type
+    children = {k: ctx.Process(target=dryrun_child,
+                               args=(k, str(Path(tmp, f"{k}.json")), kind_dev))
+                for k in ("train", "decode")}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    cli = {}
+    try:
+        for p in children.values():
+            p.start()
+        for mp in (False, True):
+            desc = "2x16x16" if mp else "16x16"
+            cli[desc] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN["arch"],
+                 "--shape", DRYRUN["cli_shape"], "--device", kind_dev,
+                 "--out", str(Path(tmp, f"cli_{desc}.json"))] + (["--multi-pod"] if mp else []),
+                cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        mesh = make_host_mesh(DEVICE)
+        real = dryrun_real(seed, mesh)
+        dist.destroy_process_group()
+        deadline = t_phase + DRYRUN["timeout_s"]
+        for k, p in children.items():
+            p.join(max(deadline - time.perf_counter(), 1))
+            if p.exitcode != 0:
+                raise AssertionError(f"dryrun: the {k} trace ended with {p.exitcode}")
+        traced = {k: json.loads(Path(tmp, f"{k}.json").read_text()) for k in children}
+        records = {}
+        for desc, proc in cli.items():
+            _, err = proc.communicate(timeout=max(deadline - time.perf_counter(), 1))
+            if proc.returncode != 0:
+                raise AssertionError(f"dryrun: the CLI on {desc} failed: {err[-2000:]}")
+            records[desc] = json.loads(Path(tmp, f"cli_{desc}.json").read_text())[0]
+    finally:
+        for p in children.values():
+            if p.is_alive():
+                p.kill()
+        for proc in cli.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    lines, ok = [], True
+    for kind in ("train", "decode"):
+        rec, meas = traced[kind], real[kind]
+        lb = rec["roofline"]["step_lower_bound_s"]
+        peak_err = abs(rec["temp_bytes"] - meas["peak_above_start_bytes"]) \
+            / meas["peak_above_start_bytes"]
+        line = {"phase": "dryrun", "step": kind, "card": nvidia_smi(), "arch": DRYRUN["arch"],
+                "shape": rec["shape"], "mesh": "1x1", "trace_s": rec["trace_s"],
+                "n_ops": rec["n_ops"],
+                "traced_matmul_flops": rec["xla_flops_per_chip"],
+                "flop_counter_flops": meas["flop_counter_flops"],
+                "flops_equal": int(rec["xla_flops_per_chip"]) == meas["flop_counter_flops"],
+                "predicted_arg_bytes": rec["arg_bytes"],
+                "allocated_at_start_bytes": meas["allocated_at_start_bytes"],
+                "predicted_peak_above_start_bytes": rec["temp_bytes"],
+                "measured_peak_above_start_bytes": meas["peak_above_start_bytes"],
+                "peak_rel_err": peak_err, "peak_tol": PEAK_TOL,
+                "step_s": meas["step_s"], "step_lower_bound_s": lb,
+                "bottleneck": rec["roofline"]["bottleneck"],
+                "t_compute": rec["roofline"]["t_compute"],
+                "t_memory": rec["roofline"]["t_memory"],
+                "measured_over_bound": meas["step_s"] / lb}
+        if kind == "decode":
+            line["cache_bytes"] = real["decode_cache_bytes"]
+        emit(line)
+        lines.append(line)
+        ok &= line["flops_equal"] and peak_err <= PEAK_TOL and line["measured_over_bound"] >= 1
+    for desc, rec in records.items():
+        line = {"phase": "dryrun", "step": f"production_{desc}", "record": rec}
+        emit(line)
+        lines.append(line)
+        ok &= rec["status"] == "ok" and rec["mesh"] == desc
+    done = {"phase": "dryrun", "step": "done", "launches": read_counts(),
+            "seconds": time.perf_counter() - t_phase}
+    emit(done)
+    if any(done["launches"].values()):
+        raise AssertionError("dryrun: a kernel of the MSJ path launched on the model path")
+    if not ok:
+        raise AssertionError(f"dryrun failed: {lines}")
+    return lines + [done]
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3205,6 +3461,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     # and the mesh path's: every gloo rank's and the NCCL run's
     e2e.append(phase_mesh(args.seed)[0])
+    torch.cuda.empty_cache()
+    phase_dryrun(args.seed)
     torch.cuda.empty_cache()
 
     sources = {

@@ -7,8 +7,12 @@ every rank of the process group on a ``(data, model)``
 ``data``, tensor parallelism would go over ``model``.  Without a process
 group, and outside ``torchrun``, it starts a one-rank group (NCCL on the
 card, gloo with ``device="cpu"``), so the same path runs without a
-launcher.  The reference's ``make_production_mesh`` (256 and 512 devices)
-belongs to the dry-run (ROADMAP Queue 1 item 7).
+launcher.  :func:`make_production_mesh` builds the reference's production
+meshes, ``(data=16, model=16)`` (256 ranks) and ``(pod=2, data=16,
+model=16)`` (512 ranks), on the default group it finds; the dry-run
+(:mod:`repro_torch.launch.dryrun`) first starts one with
+:func:`make_fake_group`, torch's ``"fake"`` backend, whose collectives move
+nothing, so that one process traces rank 0 of the production mesh.
 
 The helpers read a mesh's axis names and sizes only, from a
 ``DeviceMesh`` or from a plain ``{axis: size}`` dict (the sharding rules of
@@ -37,6 +41,7 @@ from torch.distributed.tensor import DTensor, Partial, Shard, distribute_tensor
 from repro_torch.core.relation import resolve_device
 
 AXES = ("data", "model")
+PRODUCTION = {False: ((16, 16), AXES), True: ((2, 16, 16), ("pod",) + AXES)}
 
 
 def _free_port() -> int:
@@ -62,6 +67,32 @@ def make_host_mesh(device=None) -> DeviceMesh:
     return init_device_mesh(dev.type, (dist.get_world_size(), 1), mesh_dim_names=AXES)
 
 
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> DeviceMesh:
+    """The reference's production mesh on the default process group:
+    ``(data=16, model=16)``, or with ``multi_pod`` ``(pod=2, data=16,
+    model=16)``, on ``device``'s type (the card unless ``device="cpu"``).
+    Batch and FSDP shard over ``pod`` and ``data``, tensor parallelism over
+    ``model``.  The group must already hold 256 or 512 ranks (a
+    :func:`make_fake_group` for a trace); none is started here."""
+    shape, axes = PRODUCTION[multi_pod]
+    world = math.prod(shape)
+    if not dist.is_initialized() or dist.get_world_size() != world:
+        have = dist.get_world_size() if dist.is_initialized() else "no"
+        raise RuntimeError(f"the production mesh {shape} needs a process group of {world} "
+                           f"ranks, found {have}")
+    return init_device_mesh(resolve_device(device).type, shape, mesh_dim_names=axes)
+
+
+def make_fake_group(world: int) -> None:
+    """Start the default process group as rank 0 of ``world`` on torch's
+    ``"fake"`` backend: collectives return at once and move nothing, so one
+    process can run rank 0's part of a ``world``-rank program (under fake
+    tensors, its trace).  Call it before anything else starts a group."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+
+
 def axis_sizes(mesh) -> dict:
     """``{axis: size}`` of a ``DeviceMesh`` or of such a dict, in mesh order."""
     if isinstance(mesh, DeviceMesh):
@@ -83,11 +114,13 @@ def local(x):
 
 
 @torch.no_grad()
-def full_value(x):
+def full_value(x, over=None):
     """The full tensor of a DTensor (a collective over the mesh dims that
     shard it; the last mesh dim is gathered first, so a tensor dim sharded
     over several mesh dims comes back major to minor); any other tensor as
-    it is.  Partial placements are refused: they are not values yet."""
+    it is.  With ``over`` (mesh dim names), only those mesh dims are
+    gathered: the result is this rank's part along the others.  Partial
+    placements are refused: they are not values yet."""
     if not isinstance(x, DTensor):
         return x
     t = x.to_local().detach()
@@ -97,6 +130,8 @@ def full_value(x):
         if isinstance(pl, Partial):
             raise ValueError("full_value of a Partial DTensor: reduce it first")
         n = mesh.size(dim)
+        if over is not None and mesh.mesh_dim_names[dim] not in over:
+            continue
         if isinstance(pl, Shard) and n > 1:
             if x.shape[pl.dim] % math.prod(mesh.size(i) for i, p in enumerate(x.placements)
                                           if isinstance(p, Shard) and p.dim == pl.dim):
@@ -144,10 +179,10 @@ def place_module(module: nn.Module, placements: dict, mesh: DeviceMesh) -> nn.Mo
         p0.requires_grad)
 
 
-def gathered_module(module: nn.Module) -> nn.Module:
+def gathered_module(module: nn.Module, requires_grad: bool = True) -> nn.Module:
     """A module of ``module``'s full parameters, each a new leaf that
-    records gradients (the forward and backward of a sharded state run on
-    it; a mesh dim of size 1 gathers nothing, so on one rank the
-    parameters share the DTensors' storage)."""
+    records gradients unless ``requires_grad`` is false (the forward and
+    backward of a sharded state run on it; a mesh dim of size 1 gathers
+    nothing, so on one rank the parameters share the DTensors' storage)."""
     return module_with(module, {n: full_value(p) for n, p in module.named_parameters()},
-                       requires_grad=True)
+                       requires_grad=requires_grad)

@@ -83,8 +83,10 @@ def gelu_ffn(x, w1, w2):
 # Launch code names the batch axes here (``model.batch_axes(mesh)``).  The
 # reference's forwards re-constrain the residual stream at every layer
 # boundary; the port's run on plain local tensors and do not.  The callers
-# are ``moe_sort_local`` and, with ``seq_axis``, the dry-run (ROADMAP
-# Queue 1 item 7).  A DTensor carries its mesh, so no mesh is kept here.
+# are ``moe_sort_local`` and, with ``seq_axis``, the dry-run
+# (``launch/dryrun.py``, where the reference calls it), on whose local
+# activations it has no effect.  A DTensor carries its mesh, so no mesh is
+# kept here.
 
 _ACT_BATCH_AXES: tuple | None = None
 _ACT_SEQ_AXIS: str | None = None  # sequence parallelism: seq dim over model

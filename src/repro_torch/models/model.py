@@ -35,6 +35,8 @@ module-shaped tree, such as the optimizer's moments.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
@@ -68,11 +70,102 @@ def loss_fn(cfg, params, batch):
 
 
 def prefill(cfg, params, batch, max_len: int):
+    """(cache, last-token logits) of a prompt batch; sharded (see
+    :func:`_sharded_serve`) when the parameters are DTensors."""
+    if _is_sharded(params):
+        return _sharded_serve(cfg, params, batch, None,
+                              lambda p, b, _: _mod(cfg).prefill(cfg, p, b, max_len))
     return _mod(cfg).prefill(cfg, params, batch, max_len)
 
 
 def decode_step(cfg, params, cache, tokens):
+    """(cache', logits) of one token per slot; sharded (see
+    :func:`_sharded_serve`) when the parameters are DTensors."""
+    if _is_sharded(params):
+        return _sharded_serve(cfg, params, {"tokens": tokens}, cache,
+                              lambda p, b, c: _mod(cfg).decode_step(cfg, p, c, b["tokens"]))
     return _mod(cfg).decode_step(cfg, params, cache, tokens)
+
+
+def _is_sharded(params) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(next(params.parameters()), DTensor)
+
+
+def batch_shard(mesh) -> tuple[int, int]:
+    """(number of batch shards, this rank's index among them): the
+    flattened batch axes of ``mesh``, major to minor."""
+    sizes = axis_sizes(mesh)
+    n, r = 1, 0
+    for a in batch_axes(mesh):
+        n, r = n * sizes[a], r * sizes[a] + mesh.get_local_rank(a)
+    return n, r
+
+
+def _sharded_serve(cfg, params, batch: dict, cache, fn):
+    """Serving on a module of DTensor parameters, FSDP-style as the
+    sharded train step: every weight is gathered whole
+    (``gathered_module``), and the rank runs ``fn(module, batch, cache)``,
+    the unsharded call, on its own batch rows.  A rank's rows are its
+    shard of the batch axes when the batch splits evenly over them (as
+    :func:`batch_specs` and :func:`cache_specs` then shard it), else all
+    rows.  Inputs are DTensors placed by those specs or global tensors; a
+    cache leaf's ``model``-sharded axis is gathered for the rank's rows.
+    Returns the new cache placed by :func:`cache_specs` (each leaf's
+    ``model`` axis sliced back out; ``len``, replicated there, gathered
+    over the batch axes) and the logits sharded on their batch dim.  On a
+    mesh of one rank per batch shard and ``model`` size 1 the cache's
+    local tensors are the ones written in place."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh = next(params.parameters()).device_mesh
+    n, r = batch_shard(mesh)
+    B = batch["tokens"].shape[0]
+    split = B % n == 0
+    axes = batch_axes(mesh)
+    others = tuple(a for a in mesh.mesh_dim_names if a not in axes)
+
+    def rows(v, bdim):
+        """This rank's rows of ``v``, whole along every other dim."""
+        if isinstance(v, DTensor):
+            pl = v.placements[mesh.mesh_dim_names.index(axes[0])]
+            v = mesh_lib.full_value(v, over=others)
+            if isinstance(pl, Shard) and pl.dim == bdim:
+                return v
+        return torch.chunk(v, n, dim=bdim)[r] if split and n > 1 else v
+
+    mine = {k: rows(v, 0) for k, v in batch.items()}
+    local_cache = None
+    if cache is not None:
+        local_cache = {k: rows(v, cache_batch_dim(k, v.shape)) for k, v in cache.items()}
+    work = mesh_lib.gathered_module(params, requires_grad=False)
+    new_cache, logits = fn(work, mine, local_cache)
+    del work
+
+    def placed(local, spec):
+        pl = placements(spec, mesh)
+        for dim, p in enumerate(pl):  # slice this rank's part of each non-batch dim back out
+            if isinstance(p, Shard) and mesh.mesh_dim_names[dim] not in axes:
+                local = torch.chunk(local, mesh.size(dim), dim=p.dim)[
+                    mesh.get_local_rank(mesh.mesh_dim_names[dim])]
+        return DTensor.from_local(local.contiguous(), mesh, pl, run_check=False)
+
+    row_pl = [Shard(0) if a in axes and split else Replicate() for a in mesh.mesh_dim_names]
+    shapes = {}  # each leaf's global shape, for its spec
+    for k, v in new_cache.items():
+        shapes[k] = list(v.shape)
+        if split:
+            shapes[k][cache_batch_dim(k, v.shape)] *= n
+    specs = cache_specs(cfg, {k: SimpleNamespace(shape=s) for k, s in shapes.items()}, mesh)
+    out = {}
+    for k, v in new_cache.items():
+        if k == "len" and split and n > 1:
+            v = mesh_lib.full_value(DTensor.from_local(v, mesh, row_pl, run_check=False))
+        out[k] = placed(v, specs[k])
+    return out, DTensor.from_local(logits, mesh, row_pl, run_check=False)
 
 
 def init_cache(cfg, batch: int, max_len: int, *, device=None):
@@ -236,7 +329,7 @@ def cache_specs(cfg, cache: dict, mesh) -> dict:
         if name == "len" or not leaf.shape:
             return (None,) * len(leaf.shape)
         spec: list = [None] * len(leaf.shape)
-        bdim = 2 if len(leaf.shape) >= 5 and name in ("conv", "ssm") else 1
+        bdim = cache_batch_dim(name, leaf.shape)
         if len(leaf.shape) > bdim and leaf.shape[bdim] % nb == 0:
             spec[bdim] = _entry(ba)
         if leaf.shape[-1] % nm == 0:
@@ -246,6 +339,14 @@ def cache_specs(cfg, cache: dict, mesh) -> dict:
         return tuple(spec)
 
     return {k: rule(k, v) for k, v in cache.items()}
+
+
+def cache_batch_dim(name: str, shape) -> int:
+    """The batch dim of cache leaf ``name``: 0 for ``len``, 2 for the
+    hybrid's grouped ``conv``/``ssm`` state, else 1 (after the layer axis)."""
+    if name == "len":
+        return 0
+    return 2 if len(shape) >= 5 and name in ("conv", "ssm") else 1
 
 
 def input_specs(cfg, shape) -> dict:

@@ -93,7 +93,10 @@ def dispatch(idx, n_experts: int, C: int):
     N, top_k = idx.shape
     flat_e = idx.reshape(-1)
     e_s, order = torch.sort(flat_e, stable=True)
-    counts = torch.bincount(e_s, minlength=n_experts)
+    # the count per expert as a fixed-size scatter (``bincount``'s output
+    # size depends on the values, which a trace on fake tensors cannot know)
+    counts = torch.zeros(n_experts, dtype=e_s.dtype, device=e_s.device).scatter_add_(
+        0, e_s, torch.ones_like(e_s))
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(N * top_k, device=idx.device) - starts[e_s]
     keep = rank < C
@@ -113,9 +116,11 @@ def moe_sort(p: MoE, x, top_k: int, capacity_factor: float = 1.25):
     tok_s, k_s, keep, slot = dispatch(idx, E, C)
     w_s = w.reshape(-1)[k_s]
 
-    buf = torch.zeros((E * C, d), dtype=x.dtype, device=x.device)
-    buf[slot[keep]] = xf[tok_s[keep]]
-    h = buf.reshape(E, C, d)
+    # dropped pairs write a spare last row, so no shape depends on the
+    # values; kept pairs have distinct slots
+    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    buf[torch.where(keep, slot, E * C)] = xf[tok_s]
+    h = buf[:-1].reshape(E, C, d)
     dt = x.dtype
     h1 = torch.bmm(h, p.w1.to(dt))
     h3 = torch.bmm(h, p.w3.to(dt))

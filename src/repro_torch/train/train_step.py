@@ -65,35 +65,32 @@ def _loss_and_grads(cfg, params, batch: dict, microbatches: int):
     return loss, grads
 
 
-def _local_batch(batch: dict, mesh, microbatches: int) -> tuple[dict, int]:
-    """This rank's part of ``batch`` and the number of batch shards: a
-    DTensor's local rows, or of a plain (global) tensor, the rank's share
-    of each microbatch along the batch axes, so that its microbatches are
-    the reference's, sharded.  Shares must be equal (see the module doc):
-    a plain batch that does not split so is run whole by every rank (one
-    shard); a DTensor batch must split so."""
-    axes = model.batch_axes(mesh)
-    sizes = mesh_lib.axis_sizes(mesh)
-    n, r = 1, 0
-    for a in axes:  # the rank's index over the flattened batch axes
-        n, r = n * sizes[a], r * sizes[a] + mesh.get_local_rank(a)
+def _local_batch(batch: dict, mesh, microbatches: int) -> tuple[dict, int, int]:
+    """This rank's part of ``batch``, the number of batch shards and of the
+    rank's microbatches: a DTensor's local rows, or of a plain (global)
+    tensor, the rank's share of each microbatch along the batch axes, so
+    that its microbatches are the reference's, sharded.  Shares must be
+    equal (see the module doc): a plain batch that does not split so is
+    run whole by every rank (one shard).  A DTensor batch must split
+    evenly over the shards; where a shard holds fewer rows than
+    ``microbatches`` (the reference's microbatch is then less than a row
+    per shard), the rank runs each of its rows as one microbatch, which
+    gives the same mean."""
+    n, r = model.batch_shard(mesh)
     rows = next(iter(batch.values())).shape[0]
     if rows % microbatches:
         raise ValueError(f"a batch of {rows} rows does not split into "
                          f"{microbatches} microbatches")
-    even = rows % (n * microbatches) == 0
-    if not even and any(isinstance(v, DTensor) for v in batch.values()):
-        raise ValueError(f"a DTensor batch of {rows} rows does not split evenly into "
-                         f"{microbatches} microbatches on each of {n} batch shards")
-    if not even:
-        return batch, 1
-
-    def mine(v):
-        if isinstance(v, DTensor):
-            return v.to_local()
-        return torch.cat([torch.chunk(mb, n)[r] for mb in torch.chunk(v, microbatches)])
-
-    return {k: mine(v) for k, v in batch.items()}, n
+    if any(isinstance(v, DTensor) for v in batch.values()):
+        if rows % n or (rows // n) % microbatches and microbatches % (rows // n):
+            raise ValueError(f"a DTensor batch of {rows} rows does not split evenly into "
+                             f"{microbatches} microbatches on each of {n} batch shards")
+        return ({k: v.to_local() for k, v in batch.items()}, n,
+                min(microbatches, rows // n))
+    if rows % (n * microbatches):
+        return batch, 1, microbatches
+    return ({k: torch.cat([torch.chunk(mb, n)[r] for mb in torch.chunk(v, microbatches)])
+             for k, v in batch.items()}, n, microbatches)
 
 
 def _sharded_loss_and_grads(cfg, params, batch: dict, microbatches: int):
@@ -101,7 +98,7 @@ def _sharded_loss_and_grads(cfg, params, batch: dict, microbatches: int):
     placement, of a module of DTensor parameters (see the module doc)."""
     mesh = next(params.parameters()).device_mesh
     axes = model.batch_axes(mesh)
-    mine, n = _local_batch(batch, mesh, microbatches)
+    mine, n, microbatches = _local_batch(batch, mesh, microbatches)
     work = mesh_lib.gathered_module(params)
     loss, full = _loss_and_grads(cfg, work, mine, microbatches)
     del work
@@ -113,7 +110,10 @@ def _sharded_loss_and_grads(cfg, params, batch: dict, microbatches: int):
         g = full.pop(0)  # each full gradient is freed once it is redistributed
         g = DTensor.from_local(g, mesh, summed, run_check=False).redistribute(
             mesh, p.placements)
-        grads.append(g / n if n > 1 else g)
+        if n > 1:  # on the local shard: no DTensor op in the step
+            g = DTensor.from_local(g.to_local() / n, mesh, g.placements, run_check=False,
+                                   shape=g.shape, stride=g.stride())
+        grads.append(g)
     loss = DTensor.from_local(loss, mesh, summed, run_check=False).full_tensor()
     return (loss / n if n > 1 else loss), grads
 

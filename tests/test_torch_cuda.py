@@ -606,3 +606,71 @@ def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
     return [tree]
+
+
+_TRACE = """
+import json, sys, torch
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import ShapeSpec
+from repro_torch.launch import dryrun, mesh as mesh_lib
+torch.cuda.set_device(0)
+mesh_lib.make_fake_group(1)
+mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=mesh_lib.AXES)
+rec = dryrun.run_cell("qwen3-0.6b", ShapeSpec("train_4x1024", 1024, 4, "train"), mesh=mesh,
+                      device="cuda", overrides={"n_layers": 2}, verbose=False)
+print(json.dumps(rec))
+"""
+
+
+def test_dryrun_trace_holds_to_the_real_step_on_card(nccl_mesh):
+    """The dry-run's trace of a train step (qwen3-0.6b's width, 2 layers,
+    4 × 1024 tokens in its 2 microbatches) on a fake (1, 1) mesh, in a
+    subprocess whose default group is the fake one, against the same step
+    on the card's (1, 1) NCCL mesh: the matmul FLOPs equal
+    ``FlopCounterMode``'s, the predicted peak above the step's start is
+    within 10 % of ``max_memory_allocated``'s, and the step takes at least
+    the roofline's lower bound."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.ft import elastic
+    from repro_torch.models import model
+    from repro_torch.train import optimizer, train_step as ts
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    run = subprocess.run([sys.executable, "-c", _TRACE], capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ, PYTHONPATH=src))
+    assert run.returncode == 0, run.stderr[-3000:]
+    rec = json.loads(run.stdout.strip().splitlines()[-1])
+
+    cfg = get_config("qwen3-0.6b", n_layers=2)
+    opt = optimizer.OptConfig()
+    state = ts.init_state(cfg, 0, opt, device="cuda")
+    state = elastic.reshard_state(state, ts.state_specs(cfg, state, nccl_mesh), nccl_mesh)
+    batch = synthetic.token_batch(cfg, "train", 4, 1024, 0, device="cuda")
+    batch = elastic.reshard_state(batch, model.batch_specs(cfg, batch, nccl_mesh), nccl_mesh)
+    step = ts.make_train_step(cfg, opt, microbatches=cfg.train_microbatches)
+    with FlopCounterMode(display=False) as fc:
+        state, m = step(state, batch)
+        float(m["loss"])
+    del m
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    float(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - start
+    assert int(rec["xla_flops_per_chip"]) == fc.get_total_flops()
+    assert abs(rec["temp_bytes"] - peak) <= 0.10 * peak, (rec["temp_bytes"], peak)
+    assert wall >= rec["roofline"]["step_lower_bound_s"], (wall, rec["roofline"])

@@ -37,7 +37,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.train.optimizer", "repro_torch.train.grad_compress",
             "repro_torch.train.train_step", "repro_torch.data.synthetic",
             "repro_torch.data.pipeline", "repro_torch.ckpt.checkpoint",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun", "repro_torch.launch.opcost",
+            "repro_torch.launch.roofline", "repro_torch.launch.report"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -256,6 +256,10 @@ def _rank_grads(rank, m41) -> dict:
                                 [Shard(0), Replicate()])
     loss, grads = ts.loss_and_grads(cfg, sharded, {"tokens": tokens})
     out = {"loss": float(loss), "grads": [mesh_lib.full_value(g).numpy() for g in grads]}
+    # 4 microbatches of a batch that gives each rank 2 rows: a row each
+    loss, grads = ts.loss_and_grads(cfg, sharded, {"tokens": tokens}, 4)
+    out["row_each"] = {"loss": float(loss),
+                       "grads": [mesh_lib.full_value(g).numpy() for g in grads]}
     # 6 rows do not split over 4 batch shards: every rank runs them all
     uneven = _uneven_batch(cfg)
     loss, grads = ts.loss_and_grads(cfg, sharded, uneven)
@@ -320,6 +324,47 @@ def _rank_constrain(m22) -> dict:
     return out
 
 
+SERVE_ARCHS = ("qwen3-0.6b", "zamba2-7b")  # a KV cache; and the hybrid's grouped state (batch on dim 2)
+SERVE = {"B": 4, "S": 24, "max_len": 40}
+
+
+def _serve_inputs(arch):
+    """Float32 SMOKE weights, a prompt batch and one decode token, the
+    same on every rank (and in the test's process)."""
+    cfg = get_config(arch, smoke=True, dtype="float32")
+    params = model.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(11)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (SERVE["B"], SERVE["S"] + 1))
+                              .astype(np.int32))
+    return cfg, params, {"tokens": tokens[:, :-1]}, tokens[:, -1:]
+
+
+def _rank_serve(m22) -> dict:
+    """Sharded prefill and one decode step on (2, 2): each rank's logits
+    (its batch rows) and each cache leaf gathered over ``model`` only (its
+    rows, whole), with the placements they came back in."""
+    out = {}
+    with torch.no_grad():
+        for arch in SERVE_ARCHS:
+            cfg, params, batch, tok = _serve_inputs(arch)
+            sharded = elastic.reshard_state(
+                {"params": params}, {"params": model.partition_specs(cfg, params, m22)},
+                m22)["params"]
+            batch = elastic.reshard_state(batch, model.batch_specs(cfg, batch, m22), m22)
+            tok = elastic.reshard_state({"t": tok}, {"t": model.batch_specs(
+                cfg, {"t": tok}, m22)["t"]}, m22)["t"]
+            cache, logits = model.prefill(cfg, sharded, batch, SERVE["max_len"])
+            got = {"prefill": ({k: mesh_lib.full_value(v, over=("model",)).numpy()
+                                for k, v in cache.items()}, logits.to_local().numpy())}
+            cache, logits = model.decode_step(cfg, sharded, cache, tok)
+            got["decode"] = ({k: mesh_lib.full_value(v, over=("model",)).numpy()
+                              for k, v in cache.items()}, logits.to_local().numpy())
+            got["placements"] = {k: tuple(map(str, v.placements)) for k, v in cache.items()}
+            got["logit_placements"] = tuple(map(str, logits.placements))
+            out[arch] = got
+    return out
+
+
 def _rank(rank, port, tmp):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=WORLD,
@@ -331,7 +376,8 @@ def _rank(rank, port, tmp):
     out = {"comm": _rank_comm(m22, m41), "msj": _rank_msj(m41),
            "train": _rank_train(rank, m22, m41, m11, tmp),
            "grads": _rank_grads(rank, m41), "moe": _rank_moe(rank, m21),
-           "constrain": _rank_constrain(m22)}
+           "constrain": _rank_constrain(m22), "serve": _rank_serve(m22),
+           "rank": rank, "coord": m22.get_coordinate()}
     torch.save(out, f"{tmp}/rank{rank}.pt")
     dist.barrier()
     dist.destroy_process_group()
@@ -504,6 +550,21 @@ def test_each_rank_its_own_batch_gives_the_full_batch_gradient(ranks):
             assert rel_max(want.numpy(), g) <= TOL
 
 
+def test_a_dtensor_batch_of_fewer_rows_than_microbatches_runs_a_row_each(ranks):
+    """2 rows per rank and 4 microbatches (the reference's microbatch is
+    half a row per shard): each rank runs its rows one at a time, and the
+    loss and gradients are the full batch's."""
+    cfg = _cfg()
+    params = ts.init_state(cfg, 0, OPT, device="cpu")["params"]
+    tokens = torch.cat([_per_rank_batch(cfg, r)["tokens"] for r in range(WORLD)])
+    loss, grads = ts.loss_and_grads(cfg, params, {"tokens": tokens})
+    for r in ranks:
+        got = r["grads"]["row_each"]
+        assert got["loss"] == pytest.approx(float(loss), rel=TOL, abs=0)
+        for g, want in zip(got["grads"], grads, strict=True):
+            assert rel_max(want.numpy(), g) <= TOL
+
+
 def test_a_batch_that_does_not_split_runs_whole_on_every_rank(ranks):
     """6 rows on 4 batch shards: the full batch's loss and gradients (not
     a mean of unequal shares); rows that do not split into microbatches,
@@ -542,6 +603,40 @@ def test_constrain_batch_places_dtensor_activations(ranks):
         assert got["none"] == ("R", "R") and got["plain"]
         assert got["batch"] == (("S(0)", "R"), True)
         assert got["seq"] == (("S(0)", "S(1)"), True)
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_sharded_prefill_and_decode_are_each_ranks_unsharded_rows(ranks, arch):
+    """Each rank of (2, 2) runs its batch shard (``data``) with every
+    weight gathered: its logits and its rows of the new cache are bit for
+    bit the unsharded prefill and decode of those rows, and the cache
+    comes back in ``cache_specs``' placements (``len`` replicated)."""
+    cfg, params, batch, tok = _serve_inputs(arch)
+    half = SERVE["B"] // 2
+    with torch.no_grad():
+        for r in ranks:
+            rows = slice(r["coord"][0] * half, (r["coord"][0] + 1) * half)
+            cache, logits = model.prefill(cfg, params, {"tokens": batch["tokens"][rows]},
+                                          SERVE["max_len"])
+            want = {"prefill": ({k: v.numpy().copy() for k, v in cache.items()},
+                                logits.numpy())}
+            cache, logits = model.decode_step(cfg, params, cache, tok[rows])
+            want["decode"] = ({k: v.numpy() for k, v in cache.items()}, logits.numpy())
+            got = r["serve"][arch]
+            for step in ("prefill", "decode"):
+                (gc_, gl), (wc, wl) = got[step], want[step]
+                assert np.array_equal(gl, wl), (arch, step, r["rank"])
+                assert gc_.keys() == wc.keys()
+                for k in wc:  # ``len`` is replicated: every rank holds all rows
+                    g = gc_[k][rows] if k == "len" else gc_[k]
+                    assert np.array_equal(g, wc[k]), (arch, step, k, r["rank"])
+            m22 = {"data": 2, "model": 2}
+            specs = model.cache_specs(cfg, model.init_cache(
+                cfg, SERVE["B"], SERVE["max_len"], device="meta"), m22)
+            assert got["placements"] == {k: tuple(map(str, model.placements(v, m22)))
+                                         for k, v in specs.items()}
+            assert got["placements"]["len"] == ("R", "R")
+            assert got["logit_placements"] == ("S(0)", "R")
 
 
 def test_checkpoint_and_reshard_across_meshes(ranks):

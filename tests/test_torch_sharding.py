@@ -27,6 +27,7 @@ from repro.train import optimizer as joptimizer, train_step as jts  # noqa: E402
 from repro_torch.configs import SHAPES, get_config, list_archs  # noqa: E402
 from repro_torch.models import model  # noqa: E402
 from repro_torch.train import train_step as ts  # noqa: E402
+from test_torch_models import one_thread  # noqa: E402, F401
 
 MESHES = {
     "16x16": (("data", "model"), (16, 16)),
@@ -196,3 +197,70 @@ def test_placements_refuse_axes_out_of_mesh_order():
 def test_batch_axes_are_every_axis_but_model():
     assert model.batch_axes({"pod": 2, "data": 16, "model": 16}) == ("pod", "data")
     assert model.fsdp_axes({"data": 4, "model": 1}) == ("data",)
+
+
+# --------------------------------------------------------------------------
+# sharded serving on a one-rank (1, 1) mesh
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def one_rank_mesh():
+    """A (1, 1) gloo mesh in this process (``make_host_mesh`` starts the
+    one-rank group, or reuses one another module of this worker left)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    started = not dist.is_initialized()
+    mesh = mesh_lib.make_host_mesh("cpu")
+    assert tuple(mesh.shape) == (1, 1)
+    yield mesh
+    if started:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "zamba2-7b", "seamless-m4t-medium"])
+def test_sharded_prefill_and_decode_on_one_rank_are_the_unsharded_calls(one_rank_mesh, arch):
+    """On (1, 1) the sharded branch gathers nothing and runs every row:
+    logits and cache bit for bit the unsharded calls', the cache in
+    ``cache_specs``' placements, and decode writes the prefill's cache in
+    place as the unsharded decode does."""
+    from repro_torch.ft import elastic
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh = one_rank_mesh
+    cfg = get_config(arch, smoke=True, dtype="float32")
+    params = model.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(5)
+    B, S = 4, 24
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32))
+    batch = {"tokens": tokens[:, :-1]}
+    if cfg.family == "audio":  # frames first: 1/4 of the positions
+        batch = {"tokens": tokens[:, :18],
+                 "embeds": torch.from_numpy(rng.standard_normal((B, 6, cfg.d_model))
+                                            .astype(np.float32))}
+    tok = tokens[:, -1:]
+    with torch.no_grad():
+        want_cache, want_logits = model.prefill(cfg, params, batch, 40)
+        want_cache = {k: v.clone() for k, v in want_cache.items()}
+        want_dcache, want_dlogits = model.decode_step(
+            cfg, params, {k: v.clone() for k, v in want_cache.items()}, tok)
+        sp = elastic.reshard_state({"params": params},
+                                   {"params": model.partition_specs(cfg, params, mesh)},
+                                   mesh)["params"]
+        sb = elastic.reshard_state(batch, model.batch_specs(cfg, batch, mesh), mesh)
+        st = elastic.reshard_state({"t": tok}, {"t": model.batch_specs(cfg, {"t": tok},
+                                                                       mesh)["t"]}, mesh)["t"]
+        cache, logits = model.prefill(cfg, sp, sb, 40)
+        assert torch.equal(mesh_lib.full_value(logits), want_logits)
+        specs = model.cache_specs(cfg, cache, mesh)
+        for k, v in cache.items():
+            assert torch.equal(v.to_local(), want_cache[k]), k
+            assert list(v.placements) == model.placements(specs[k], mesh), k
+        before = {k: v.to_local().data_ptr() for k, v in cache.items() if k != "len"}
+        dcache, dlogits = model.decode_step(cfg, sp, cache, st)
+    assert torch.equal(mesh_lib.full_value(dlogits), want_dlogits)
+    for k, v in dcache.items():
+        assert torch.equal(v.to_local(), want_dcache[k]), k
+    assert before == {k: v.to_local().data_ptr() for k, v in dcache.items() if k != "len"}
