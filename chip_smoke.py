@@ -155,10 +155,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    ``specs=``, and ``reshard_state`` onto a fresh (1, 1) mesh, bit for bit.
    ``mesh_train_4``: four gloo ranks on (data, model) = (2, 2),
    qwen3-0.6b at its width with 2 layers, float32, TF32 off, two steps of
-   4 × 1024 tokens: each rank's state bytes equal the sum of its shards as
-   ``state_specs`` gives them, losses within 1e-5 of one rank's run and
-   each parameter leaf within 1e-5 in |Δ|₂ / |p|₂, the (2, 2) checkpoint
-   loaded onto (1, 1) bit for bit.
+   4 × 1024 tokens, each layer gathered over ``data`` as it runs and
+   computed tensor-parallel over ``model`` (``models.parallel``): each
+   rank's state bytes equal the sum of its shards as ``state_specs`` gives
+   them, losses and gradient norms within 1e-5 of one rank's run and each
+   parameter leaf within 1e-5 in |Δ|₂ / |p|₂ (AdamW's default eps), each
+   rank's peak below the whole-model gather's
+   (``MESH_TRAIN_4_WHOLE_GATHER_PEAK``) and its gathered bytes live at
+   once (the gather's counter) within one layer plus ``embed`` or
+   ``lm_head``, the (2, 2) checkpoint loaded onto (1, 1) bit for bit.
 
 12. ``dryrun`` — the multi-pod dry-run (``repro_torch.launch.dryrun``,
    ``launch.opcost``, ``launch.roofline``) held to real steps.  Two spawned
@@ -2617,6 +2622,10 @@ MESH = {"msj_log2_rows": 24, "msj_P": 4, "train_steps": 2,
         "four_layers": 2, "four_batch": 4, "four_seq": 1024, "four_steps": 2,
         "ranks_timeout_s": 400, "collective_timeout_s": 300}  # the ranks took 62.5 s
 MESH_TOL = 1e-5  # relative, 4 gloo ranks to 1: losses, grad norms; parameters per leaf in |Δ|₂
+#: mesh_train_4's peak per rank when every weight was gathered whole (this
+#: phase on an NVIDIA H100 80GB HBM3 at 700 W, before per-layer gathers and
+#: tensor parallelism): each rank's peak must stay below it
+MESH_TRAIN_4_WHOLE_GATHER_PEAK = 5_006_349_824
 SHARDED_TOL = 1e-6  # relative |Δ|₂ per leaf, (1, 1) mesh against no mesh, if not bit-identical
 
 
@@ -2965,6 +2974,7 @@ def mesh_train4_rank(rank, tmp, seed) -> dict:
     from repro_torch.data import synthetic
     from repro_torch.ft import elastic
     from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import parallel
     from repro_torch.train import optimizer, train_step as ts
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2987,6 +2997,7 @@ def mesh_train4_rank(rank, tmp, seed) -> dict:
     spec_bytes = spec_state_bytes(cfg, state, m22)
     allocated = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    parallel.reset_stats()
     losses, norms, walls = [], [], []
     for batch in batches:
         dist.barrier()
@@ -2997,6 +3008,11 @@ def mesh_train4_rank(rank, tmp, seed) -> dict:
         walls.append(time.perf_counter() - t0)
         norms.append(float(m["grad_norm"]))
     peak = torch.cuda.max_memory_allocated()
+    gathered = parallel.STATS["params_peak"]
+    layer_bytes = max(sum(p.numel() * p.element_size() for p in lp.parameters())
+                      for lp in state["params"].layers)
+    ends_bytes = max(w.numel() * w.element_size() for w in (state["params"].embed,
+                                                             state["params"].lm_head))
     full = {k: mesh_lib.full_value(v) for k, v in state_leaves(state).items()}
     ckpt = str(Path(tmp) / "ckpt")
     t0 = time.perf_counter()
@@ -3005,7 +3021,9 @@ def mesh_train4_rank(rank, tmp, seed) -> dict:
     out = {"rank": rank, "coordinate": m22.get_coordinate(), "losses": losses,
            "grad_norms": norms, "step_s": walls,
            "state_bytes": state_bytes, "spec_bytes": spec_bytes,
-           "allocated_after_sharding": allocated, "peak_mem_bytes": peak, "save_s": save_s}
+           "allocated_after_sharding": allocated, "peak_mem_bytes": peak,
+           "gathered_peak_bytes": gathered,
+           "one_layer_plus_ends_bytes": layer_bytes + ends_bytes, "save_s": save_s}
     if rank == 0:
         ref = ts.init_state(cfg, seed, opt_cfg, device=DEVICE)
         init = {f"params.{n}": p.detach().clone() for n, p in ref["params"].named_parameters()}
@@ -3100,9 +3118,17 @@ def phase_mesh(seed: int) -> list:
                  "batch": MESH["four_batch"], "seq": MESH["four_seq"], "ranks": four,
                  "loss_rel_err": loss_err, "grad_norm_rel_err": norm_err,
                  "param_rel_l2_max": max(r0["param_rel_l2"].values()),
-                 "control_param_rel_l2": r0["control_param_rel_l2"], "tol": MESH_TOL}
+                 "control_param_rel_l2": r0["control_param_rel_l2"], "tol": MESH_TOL,
+                 "tensor_parallel": True,
+                 "peak_mem_bytes": [r["peak_mem_bytes"] for r in four],
+                 "whole_gather_peak_bytes": MESH_TRAIN_4_WHOLE_GATHER_PEAK,
+                 "gathered_peak_bytes": [r["gathered_peak_bytes"] for r in four],
+                 "one_layer_plus_ends_bytes": r0["one_layer_plus_ends_bytes"]}
     emit(four_line)
     if not (all(r["state_bytes"] == r["spec_bytes"] for r in four)
+            and all(r["peak_mem_bytes"] < MESH_TRAIN_4_WHOLE_GATHER_PEAK for r in four)
+            and all(0 < r["gathered_peak_bytes"] <= r["one_layer_plus_ends_bytes"]
+                    for r in four)
             and all(r["losses"] == r0["losses"] for r in four)
             and all(r["grad_norms"] == r0["grad_norms"] for r in four)
             and loss_err <= MESH_TOL and norm_err <= MESH_TOL

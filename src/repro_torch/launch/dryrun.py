@@ -18,9 +18,11 @@ Per cell:
      ``model.decode_step`` against a full cache placed by ``cache_specs``;
      serving weights are held in ``cfg.dtype`` as the port serves them
      (the reference lowers float32 parameters and casts them at use) and
-     placed by ``partition_specs``.  Sharded steps run FSDP-style: each
-     weight is gathered whole and each rank runs its batch rows
-     (``train_step``, ``model._sharded_serve``);
+     placed by ``partition_specs``.  Sharded steps compute what the
+     placements give the rank (``models.parallel``): each layer's weights
+     are gathered over the FSDP axes as the layer runs, the transformer
+     families compute tensor-parallel over ``model``, and each rank runs
+     its batch rows (``train_step``, ``model._sharded_serve``);
   3. run it once under :class:`~repro_torch.launch.opcost.OpCounter`;
   4. record the rank's bytes (its arguments, the peak of its temporaries)
      and the op counts, feeding the three-term roofline
@@ -35,6 +37,8 @@ FLOPs of ``torch.utils.flop_counter``'s registry.
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-72b --shape train_4k
   python -m repro_torch.launch.dryrun --arch qwen2-72b --shape train_4k --multi-pod
+  python -m repro_torch.launch.dryrun --cell qwen2-72b:train_4k --cell olmoe-1b-7b:decode_32k \
+      --jobs 2 --out results.json --device cpu
   python -m repro_torch.launch.dryrun --all [--multi-pod] --out results.json --device cpu
 """
 from __future__ import annotations
@@ -247,6 +251,8 @@ def main(argv=None):
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--cell", action="append", default=[], metavar="ARCH:SHAPE",
+                    help="a cell to trace (repeatable; with --jobs, several at once)")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--out", default=None)
     ap.add_argument("--moe-impl", default=None, choices=["dense", "sort"])
@@ -264,9 +270,11 @@ def main(argv=None):
 
     if args.all:
         cells = [(arch, shape) for arch in list_archs() for shape in SHAPES]
+    elif args.cell:
+        cells = [tuple(c.split(":", 1)) for c in args.cell]
     else:
         if not (args.arch and args.shape):
-            ap.error("--arch and --shape (or --all)")
+            ap.error("--arch and --shape (or --cell, or --all)")
         cells = [(args.arch, args.shape)]
     tasks = list(enumerate((arch, shape, args.multi_pod, overrides, args.device)
                            for arch, shape in cells))

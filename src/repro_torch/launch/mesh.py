@@ -4,7 +4,7 @@ place a model's state on one.
 The counterpart of ``repro.launch.mesh``.  :func:`make_host_mesh` puts
 every rank of the process group on a ``(data, model)``
 ``DeviceMesh`` of shape ``(world_size, 1)``: batch and FSDP shard over
-``data``, tensor parallelism would go over ``model``.  Without a process
+``data``, tensor parallelism goes over ``model``.  Without a process
 group, and outside ``torchrun``, it starts a one-rank group (NCCL on the
 card, gloo with ``device="cpu"``), so the same path runs without a
 launcher.  :func:`make_production_mesh` builds the reference's production
@@ -19,9 +19,11 @@ The helpers read a mesh's axis names and sizes only, from a
 :mod:`repro_torch.models.model` take either):
 
 * :func:`full_value` gathers a DTensor's full tensor with the list form of
-  ``all_gather`` on each sharded mesh dim.  (DTensor's own gather crashes
-  gloo's process group on card tensors, PERF.md §6; the list form and
-  every other collective used here work there.)
+  ``all_gather`` on each sharded mesh dim (:func:`gather_local` does it for
+  a rank's shard over chosen mesh dims: the per-layer gathers of
+  ``models.parallel``).  (DTensor's own gather crashes gloo's process group
+  on card tensors, PERF.md §6; the list form and every other collective
+  used here work there.)
 * :func:`place` puts a full tensor on a mesh by its placements, each rank
   keeping its slice; :func:`place_module` does so for every parameter of a
   model module, giving a new module of DTensor parameters.
@@ -123,26 +125,33 @@ def full_value(x, over=None):
     placements are refused: they are not values yet."""
     if not isinstance(x, DTensor):
         return x
-    t = x.to_local().detach()
+    if any(isinstance(pl, Partial) for pl in x.placements):
+        raise ValueError("full_value of a Partial DTensor: reduce it first")
     mesh = x.device_mesh
-    for dim in reversed(range(mesh.ndim)):
-        pl = x.placements[dim]
-        if isinstance(pl, Partial):
-            raise ValueError("full_value of a Partial DTensor: reduce it first")
+    dims = [d for d in range(mesh.ndim) if over is None or mesh.mesh_dim_names[d] in over]
+    return gather_local(x.to_local().detach(), mesh, x.placements, x.shape, dims)
+
+
+def gather_local(t, mesh: DeviceMesh, placements, shape, dims) -> torch.Tensor:
+    """``t``, a rank's shard of a tensor of global ``shape`` in
+    ``placements``, gathered over the mesh dims ``dims`` (indices) that
+    shard it, the last mesh dim first, with the list form of
+    ``all_gather``."""
+    for dim in sorted(dims, reverse=True):
+        pl = placements[dim]
         n = mesh.size(dim)
-        if over is not None and mesh.mesh_dim_names[dim] not in over:
-            continue
         if isinstance(pl, Shard) and n > 1:
-            if x.shape[pl.dim] % math.prod(mesh.size(i) for i, p in enumerate(x.placements)
-                                          if isinstance(p, Shard) and p.dim == pl.dim):
-                raise ValueError(f"dim {pl.dim} of {tuple(x.shape)} does not shard evenly")
+            if shape[pl.dim] % math.prod(mesh.size(i) for i, p in enumerate(placements)
+                                         if isinstance(p, Shard) and p.dim == pl.dim):
+                raise ValueError(f"dim {pl.dim} of {tuple(shape)} does not shard evenly")
             # bool has no gloo type: its bytes travel as uint8
             src = t.contiguous()
-            src = src.view(torch.uint8) if src.dtype == torch.bool else src
+            is_bool = src.dtype == torch.bool
+            src = src.view(torch.uint8) if is_bool else src
             parts = [torch.empty_like(src) for _ in range(n)]
             dist.all_gather(parts, src, group=mesh.get_group(dim))
             t = torch.cat(parts, dim=pl.dim)
-            t = t.view(torch.bool) if x.dtype == torch.bool else t
+            t = t.view(torch.bool) if is_bool else t
     return t
 
 
@@ -178,11 +187,3 @@ def place_module(module: nn.Module, placements: dict, mesh: DeviceMesh) -> nn.Mo
         {name: place(p, mesh, placements[name]) for name, p in module.named_parameters()},
         p0.requires_grad)
 
-
-def gathered_module(module: nn.Module, requires_grad: bool = True) -> nn.Module:
-    """A module of ``module``'s full parameters, each a new leaf that
-    records gradients unless ``requires_grad`` is false (the forward and
-    backward of a sharded state run on it; a mesh dim of size 1 gathers
-    nothing, so on one rank the parameters share the DTensors' storage)."""
-    return module_with(module, {n: full_value(p) for n, p in module.named_parameters()},
-                       requires_grad=requires_grad)

@@ -11,6 +11,11 @@ Cross-attention projections carry no RoPE.
 As in :mod:`repro_torch.models.transformer`, one module per layer where
 the reference stacks and scans (``enc_layers.<i>.*``, ``dec_layers.<i>.*``);
 caches are written in place.
+
+Sharded (:mod:`~repro_torch.models.parallel`): each layer's parameters
+are gathered whole (over every axis: this family computes no
+tensor-parallel part) inside its body; each decoder layer's caches are
+gathered over ``model`` for the rank's rows and its slice written back.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.relation import resolve_device
-from repro_torch.models import kvcache
+from repro_torch.models import kvcache, parallel
 from repro_torch.models.layers import (
     Attention,
     attention,
@@ -34,6 +39,8 @@ from repro_torch.models.transformer import (
     _param,
     ce_loss,
     compute_dtype,
+    embed_tokens,
+    final_norm,
     init_head,
     next_token_targets,
     remat,
@@ -127,9 +134,10 @@ def _positions(B: int, S: int, device):
 
 
 def _enc_layer(cfg, lp: EncLayer, x, positions):
+    lp = parallel.layer(lp)
     B, T, _ = x.shape
     h = rmsnorm(x, lp.ln1.to(x.dtype), cfg.rmsnorm_eps)
-    q, k, v = qkv_project(lp.attn, h, cfg.n_heads, cfg.n_kv, cfg.head_dim, positions,
+    q, k, v = qkv_project(lp.attn, h, cfg.head_dim, positions,
                           theta=cfg.rope_theta)
     o = attention(q, k, v, causal=False, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
     x = x + o.reshape(B, T, -1) @ lp.attn.wo.to(x.dtype)
@@ -144,7 +152,7 @@ def encode(cfg, params: EncDec, embeds):
     body = remat(cfg, lambda x, lp: _enc_layer(cfg, lp, x, positions))
     for lp in params.enc_layers:
         x = body(x, lp)
-    return rmsnorm(x, params.enc_norm.to(x.dtype), cfg.rmsnorm_eps)
+    return final_norm(cfg, params, x, "enc_norm")
 
 
 def _cross_kv(lp: DecLayer, enc_out, cfg):
@@ -169,10 +177,11 @@ def _ffn(cfg, lp, x):
 
 
 def _dec_layer(cfg, lp: DecLayer, x, enc_out, positions):
-    """One teacher-forced decoder layer. Returns (x', (k, v))."""
+    """One teacher-forced decoder layer (``lp`` as :func:`parallel.layer
+    <repro_torch.models.parallel.layer>` gives it). Returns (x', (k, v))."""
     B, S, _ = x.shape
     h = rmsnorm(x, lp.ln1.to(x.dtype), cfg.rmsnorm_eps)
-    q, k, v = qkv_project(lp.self_attn, h, cfg.n_heads, cfg.n_kv, cfg.head_dim, positions,
+    q, k, v = qkv_project(lp.self_attn, h, cfg.head_dim, positions,
                           theta=cfg.rope_theta)
     o = attention(q, k, v, causal=True, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
     x = x + o.reshape(B, S, -1) @ lp.self_attn.wo.to(x.dtype)
@@ -182,24 +191,31 @@ def _dec_layer(cfg, lp: DecLayer, x, enc_out, positions):
     return _ffn(cfg, lp, x), (k, v)
 
 
-def decode_full(cfg, params: EncDec, tokens, enc_out, *, collect_kv=False):
+def decode_full(cfg, params: EncDec, tokens, enc_out, *, collect_kv=False, on_layer=None):
     """Teacher-forced decoder pass. Returns (hidden, self-kv or None), the
-    self K/V layer-stacked as (L, B, S, Hkv, D)."""
-    x = params.embed[tokens.long()].to(compute_dtype(cfg))
+    self K/V layer-stacked as (L, B, S, Hkv, D) with ``collect_kv``; with
+    ``on_layer``, ``on_layer(i, lp, k, v)`` is called with each layer's
+    parameters and self K/V instead."""
+    x = embed_tokens(cfg, params, tokens)
     positions = _positions(x.shape[0], x.shape[1], x.device)
     kvs = None
-    if collect_kv:
+    if collect_kv or on_layer is not None:
         ks, vs = [], []
-        for lp in params.dec_layers:
+        for i, lp in enumerate(params.dec_layers):
+            lp = parallel.layer(lp)
             x, (k, v) = _dec_layer(cfg, lp, x, enc_out, positions)
-            ks.append(k)
-            vs.append(v)
-        kvs = (torch.stack(ks), torch.stack(vs))
+            if on_layer is not None:
+                on_layer(i, lp, k, v)
+            else:
+                ks.append(k)
+                vs.append(v)
+        kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
     else:
-        body = remat(cfg, lambda x, lp, enc_out: _dec_layer(cfg, lp, x, enc_out, positions)[0])
+        body = remat(cfg, lambda x, lp, enc_out: _dec_layer(cfg, parallel.layer(lp), x, enc_out,
+                                                            positions)[0])
         for lp in params.dec_layers:
             x = body(x, lp, enc_out)
-    return rmsnorm(x, params.final_norm.to(x.dtype), cfg.rmsnorm_eps), kvs
+    return final_norm(cfg, params, x), kvs
 
 
 def loss_fn(cfg, params: EncDec, batch):
@@ -230,13 +246,18 @@ def prefill(cfg, params: EncDec, batch, max_len: int):
     The cache is the prefill's own, of ``max_len`` self positions and the
     ``T_a`` encoder positions, as the reference's."""
     enc_out = encode(cfg, params, batch["embeds"])
-    hidden, (ks, vs) = decode_full(cfg, params, batch["tokens"], enc_out, collect_kv=True)
     B, S = batch["tokens"].shape
-    cache = init_cache(cfg, B, max_len, enc_out.shape[1], device=params.device)
-    cache["self_k"][:, :, :S] = ks
-    cache["self_v"][:, :, :S] = vs
-    for i, lp in enumerate(params.dec_layers):
-        cache["cross_k"][i], cache["cross_v"][i] = _cross_kv(lp, enc_out, cfg)
+    cache = parallel.new_cache(
+        lambda dev: init_cache(cfg, B, max_len, enc_out.shape[1], device=dev), params.device)
+
+    def keep(i, lp, k, v):
+        cache["self_k"][i][:, :S] = parallel.cache_part("self_k", k)
+        cache["self_v"][i][:, :S] = parallel.cache_part("self_v", v)
+        kx, vx = _cross_kv(lp, enc_out, cfg)
+        parallel.cache_store(cache, "cross_k", i, kx)
+        parallel.cache_store(cache, "cross_v", i, vx)
+
+    hidden, _ = decode_full(cfg, params, batch["tokens"], enc_out, on_layer=keep)
     cache["len"].fill_(S)
     return cache, _logits(params, hidden[:, -1])
 
@@ -244,21 +265,24 @@ def prefill(cfg, params: EncDec, batch, max_len: int):
 def decode_step(cfg, params: EncDec, cache, tokens):
     """One decode step. tokens: (B, 1) -> (cache', logits (B, V)); the self
     K/V are written in place and every slot's clock advances."""
-    x = params.embed[tokens.long()].to(compute_dtype(cfg))  # (B, 1, d)
+    x = embed_tokens(cfg, params, tokens)  # (B, 1, d)
     length = cache["len"]
     B = x.shape[0]
     T_a = cache["cross_k"].shape[2]
     pos = length.broadcast_to((B,))[:, None]
     for i, lp in enumerate(params.dec_layers):
-        kc, vc = cache["self_k"][i], cache["self_v"][i]
+        lp = parallel.layer(lp)
+        kc, vc, kx, vx = (parallel.cache_layer(cache, k, i)
+                          for k in ("self_k", "self_v", "cross_k", "cross_v"))
         h = rmsnorm(x, lp.ln1.to(x.dtype), cfg.rmsnorm_eps)
-        q, k, v = qkv_project(lp.self_attn, h, cfg.n_heads, cfg.n_kv, cfg.head_dim, pos,
+        q, k, v = qkv_project(lp.self_attn, h, cfg.head_dim, pos,
                               theta=cfg.rope_theta)
         kvcache.cache_write_token(kc, vc, k, v, length)
         o = decode_attention(q, kc, vc, torch.clamp(length + 1, max=kc.shape[1]))
+        parallel.cache_store(cache, "self_k", i, kc)
+        parallel.cache_store(cache, "self_v", i, vc)
         x = x + o.reshape(B, 1, -1) @ lp.self_attn.wo.to(x.dtype)
-        x = _cross(cfg, lp, x, lambda qx: decode_attention(qx, cache["cross_k"][i],
-                                                           cache["cross_v"][i], T_a))
+        x = _cross(cfg, lp, x, lambda qx: decode_attention(qx, kx, vx, T_a))
         x = _ffn(cfg, lp, x)
-    x = rmsnorm(x, params.final_norm.to(x.dtype), cfg.rmsnorm_eps)
+    x = final_norm(cfg, params, x)
     return dict(cache, len=length + 1), _logits(params, x[:, -1])

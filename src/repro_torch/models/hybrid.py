@@ -12,6 +12,15 @@ by ``decode_window`` (the rotating buffer of :mod:`kvcache`), the grouped
 ``conv`` ``(g, per, B, W-1, C)`` and ``ssm`` ``(g, per, B, H, P, N)`` (batch
 on dim 2), the tail's ``conv_tail``/``ssm_tail`` (batch on dim 1) and
 ``len``.  Caches are written in place.
+
+Sharded (:mod:`~repro_torch.models.parallel`): each Mamba-2 layer's
+parameters are gathered whole (over every axis: this family computes no
+tensor-parallel part) inside its body, and the shared block's at each of
+its uses, so no rank holds more than one layer's gathered weights; under
+autograd each use then runs in a remat body too (its recompute gathers
+again, and its gradient is reduce-scattered use by use).  Each layer's
+cache leaves are gathered over ``model`` for the rank's rows and its
+slice written back.
 """
 from __future__ import annotations
 
@@ -19,7 +28,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.relation import resolve_device
-from repro_torch.models import kvcache, ssm
+from repro_torch.models import kvcache, parallel, ssm
 from repro_torch.models.layers import (
     Attention,
     attention,
@@ -37,6 +46,8 @@ from repro_torch.models.transformer import (
     _param,
     ce_loss,
     compute_dtype,
+    embed_tokens,
+    final_norm,
     init_head,
     next_token_targets,
     remat,
@@ -136,7 +147,7 @@ def shared_block_fwd(cfg, sp: SharedBlock, x, x0, positions):
     """Full sequence; returns (x', (k, v))."""
     h0 = torch.cat([x, x0], dim=-1)
     h = rmsnorm(h0, sp.ln1.to(x.dtype), cfg.rmsnorm_eps)
-    q, k, v = qkv_project(sp.attn, h, cfg.n_heads, cfg.n_kv, shared_head_dim(cfg), positions,
+    q, k, v = qkv_project(sp.attn, h, shared_head_dim(cfg), positions,
                           theta=cfg.rope_theta)
     o = attention(q, k, v, causal=True, window=cfg.window,
                   q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
@@ -151,7 +162,7 @@ def shared_block_decode(cfg, sp: SharedBlock, x, x0, k_cache, v_cache, length):
     h = rmsnorm(h0, sp.ln1.to(x.dtype), cfg.rmsnorm_eps)
     B = x.shape[0]
     pos = torch.as_tensor(length, device=x.device).broadcast_to((B,))[:, None]
-    q, k, v = qkv_project(sp.attn, h, cfg.n_heads, cfg.n_kv, shared_head_dim(cfg), pos,
+    q, k, v = qkv_project(sp.attn, h, shared_head_dim(cfg), pos,
                           theta=cfg.rope_theta)
     kvcache.cache_write_token(k_cache, v_cache, k, v, length)
     valid = torch.clamp(length + 1, max=k_cache.shape[1])
@@ -163,12 +174,9 @@ def shared_block_decode(cfg, sp: SharedBlock, x, x0, k_cache, v_cache, length):
 # -- full model ---------------------------------------------------------------
 
 
-def _embed(cfg, params, tokens):
-    return params.embed[tokens.long()].to(compute_dtype(cfg))
-
-
 def _mamba_fwd(cfg, lp: MambaLayer, x):
     """One residual Mamba-2 block; returns (x', its decode cache)."""
+    lp = parallel.layer(lp)
     h = rmsnorm(x, lp.ln.to(x.dtype), cfg.rmsnorm_eps)
     y, c = ssm.mamba2_prefill(lp.mamba, h, d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
                               chunk=cfg.ssm_chunk)
@@ -177,20 +185,26 @@ def _mamba_fwd(cfg, lp: MambaLayer, x):
 
 def forward(cfg, params: Hybrid, batch):
     """Full-sequence forward to the final hidden states (B, S, d)."""
-    x = _embed(cfg, params, batch["tokens"])
+    x = embed_tokens(cfg, params, batch["tokens"])
     x0 = x
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).broadcast_to((B, S))
     # as the reference, the Mamba-2 blocks run under the remat policy and
-    # the shared block does not
+    # the shared block does not, but where it is sharded: there each use
+    # gathers it, and a remat body keeps the gathered copy from being saved
     mb = remat(cfg, lambda x, lp: _mamba_fwd(cfg, lp, x)[0])
+
+    def shared_use(x, sp):
+        return shared_block_fwd(cfg, parallel.layer(sp), x, x0, positions)[0]
+
+    sb = remat(cfg, shared_use) if parallel.current() is not None else shared_use
     for group in params.groups:
-        x, _ = shared_block_fwd(cfg, params.shared, x, x0, positions)
+        x = sb(x, params.shared)
         for lp in group:
             x = mb(x, lp)
     for lp in getattr(params, "tail", ()):
         x = mb(x, lp)
-    return rmsnorm(x, params.final_norm.to(x.dtype), cfg.rmsnorm_eps)
+    return final_norm(cfg, params, x)
 
 
 def loss_fn(cfg, params: Hybrid, batch):
@@ -231,30 +245,33 @@ def prefill(cfg, params: Hybrid, batch, max_len: int):
     layer's SSM states into a new cache; returns (cache, last logits)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = _embed(cfg, params, tokens)
+    x = embed_tokens(cfg, params, tokens)
     x0 = x
     positions = torch.arange(S, device=x.device).broadcast_to((B, S))
-    cache = init_cache(cfg, B, max_len, device=params.device)
+    cache = parallel.new_cache(lambda dev: init_cache(cfg, B, max_len, device=dev),
+                               params.device)
     for gi, group in enumerate(params.groups):
-        x, (k, v) = shared_block_fwd(cfg, params.shared, x, x0, positions)
-        kvcache.cache_write_prefill({"k": cache["attn_k"][gi:gi + 1],
-                                     "v": cache["attn_v"][gi:gi + 1]}, k[None], v[None])
+        x, (k, v) = shared_block_fwd(cfg, parallel.layer(params.shared), x, x0, positions)
+        kvcache.cache_write_prefill_layer(cache["attn_k"][gi], cache["attn_v"][gi],
+                                          parallel.cache_part("attn_k", k),
+                                          parallel.cache_part("attn_v", v))
         for j, lp in enumerate(group):
             x, c = _mamba_fwd(cfg, lp, x)
-            cache["conv"][gi, j] = c["conv"]
-            cache["ssm"][gi, j] = c["ssm"]
+            parallel.cache_store(cache, "conv", (gi, j), c["conv"])
+            parallel.cache_store(cache, "ssm", (gi, j), c["ssm"])
     for i, lp in enumerate(getattr(params, "tail", ())):
         x, c = _mamba_fwd(cfg, lp, x)
-        cache["conv_tail"][i] = c["conv"]
-        cache["ssm_tail"][i] = c["ssm"]
+        parallel.cache_store(cache, "conv_tail", i, c["conv"])
+        parallel.cache_store(cache, "ssm_tail", i, c["ssm"])
     cache["len"].fill_(S)
-    x = rmsnorm(x, params.final_norm.to(x.dtype), cfg.rmsnorm_eps)
+    x = final_norm(cfg, params, x)
     return cache, _logits(params, x[:, -1])
 
 
 def _mamba_step(cfg, lp: MambaLayer, x, conv, state):
     """One token through a residual Mamba-2 block; its conv window and
     state are written in place."""
+    lp = parallel.layer(lp)
     h = rmsnorm(x, lp.ln.to(x.dtype), cfg.rmsnorm_eps)
     c, y = ssm.mamba2_decode(lp.mamba, {"conv": conv, "ssm": state}, h[:, 0],
                              d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim)
@@ -266,15 +283,25 @@ def _mamba_step(cfg, lp: MambaLayer, x, conv, state):
 def decode_step(cfg, params: Hybrid, cache, tokens):
     """One decode step. tokens: (B, 1) -> (cache', logits (B, V)); every
     slot's clock advances."""
-    x = _embed(cfg, params, tokens)  # (B, 1, d)
+    x = embed_tokens(cfg, params, tokens)  # (B, 1, d)
     x0 = x
     length = cache["len"]
+
+    def step(names, index, fn):
+        """``fn`` on one layer of the cache leaves ``names`` (written in
+        place), the rank's slice written back."""
+        parts = [parallel.cache_layer(cache, n, index) for n in names]
+        out = fn(*parts)
+        for n, t in zip(names, parts):
+            parallel.cache_store(cache, n, index, t)
+        return out
+
     for gi, group in enumerate(params.groups):
-        x = shared_block_decode(cfg, params.shared, x, x0, cache["attn_k"][gi],
-                                cache["attn_v"][gi], length)
+        x = step(("attn_k", "attn_v"), gi, lambda k, v: shared_block_decode(
+            cfg, parallel.layer(params.shared), x, x0, k, v, length))
         for j, lp in enumerate(group):
-            x = _mamba_step(cfg, lp, x, cache["conv"][gi, j], cache["ssm"][gi, j])
+            x = step(("conv", "ssm"), (gi, j), lambda c, st: _mamba_step(cfg, lp, x, c, st))
     for i, lp in enumerate(getattr(params, "tail", ())):
-        x = _mamba_step(cfg, lp, x, cache["conv_tail"][i], cache["ssm_tail"][i])
-    x = rmsnorm(x, params.final_norm.to(x.dtype), cfg.rmsnorm_eps)
+        x = step(("conv_tail", "ssm_tail"), i, lambda c, st: _mamba_step(cfg, lp, x, c, st))
+    x = final_norm(cfg, params, x)
     return dict(cache, len=length + 1), _logits(params, x[:, -1])

@@ -37,24 +37,32 @@ def init_attn_cache(n_layers: int, batch: int, max_len: int, n_kv: int, head_dim
 
 
 def cache_write_prefill(cache: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
-    """Insert prefill keys/values (layer-stacked: (L, B, S, Hkv, D)).
+    """Insert prefill keys/values (layer-stacked: (L, B, S, Hkv, D)) with
+    :func:`cache_write_prefill_layer`, layer by layer.  Writes into the
+    cache it is given and returns it."""
+    L, B, S, H, D = k.shape
+    for i in range(L):
+        cache_write_prefill_layer(cache["k"][i], cache["v"][i], k[i], v[i])
+    cache["len"] = torch.full((B,), S, dtype=torch.int64, device=k.device)
+    return cache
+
+
+def cache_write_prefill_layer(k_cache: torch.Tensor, v_cache: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor) -> None:
+    """Insert one layer's prefill keys/values (B, S, Hkv, D) into its
+    caches (B, T, Hkv, D), in place.
 
     Rotating buffers keep the invariant *position p lives at slot p % T*:
     the last T positions are rolled into place so subsequent single-token
-    writes (slot = len % T) stay consistent for any S.  Writes into the
-    cache it is given and returns it."""
-    L, B, S, H, D = k.shape
-    T = cache["k"].shape[2]
+    writes (slot = len % T) stay consistent for any S."""
+    S, T = k.shape[1], k_cache.shape[1]
     if S >= T:
-        k, v = k[:, :, S - T:], v[:, :, S - T:]
         # slice index i holds position S-T+i -> slot (i + S%T) % T
-        cache["k"][...] = torch.roll(k, shifts=S % T, dims=2)
-        cache["v"][...] = torch.roll(v, shifts=S % T, dims=2)
+        k_cache[...] = torch.roll(k[:, S - T:], shifts=S % T, dims=1)
+        v_cache[...] = torch.roll(v[:, S - T:], shifts=S % T, dims=1)
     else:
-        cache["k"][:, :, :S] = k
-        cache["v"][:, :, :S] = v
-    cache["len"] = torch.full((B,), S, dtype=torch.int64, device=k.device)
-    return cache
+        k_cache[:, :S] = k
+        v_cache[:, :S] = v
 
 
 def cache_write_token(layer_k_cache: torch.Tensor, layer_v_cache: torch.Tensor,

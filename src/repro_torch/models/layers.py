@@ -201,7 +201,7 @@ def attention(
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
 
 
-def decode_attention(q, k_cache, v_cache, valid_len):
+def decode_attention(q, k_cache, v_cache, valid_len, tp=None):
     """One-token attention against a KV cache.
 
     q: (B, 1, Hq, D); caches: (B, T, Hkv, D); valid_len: int or (B,)
@@ -213,18 +213,30 @@ def decode_attention(q, k_cache, v_cache, valid_len):
     reference, all T slots are read and the tail is masked; the scores are
     rounded to ``q.dtype`` before the float32 softmax, and the weights are
     cast back to ``q.dtype`` for the PV product.
+
+    With ``tp`` (``models.parallel.TP``) the caches hold this rank's part
+    ``r`` of every head's ``head_dim`` (B, T, Hkv, D/n) and q is whole:
+    the rank scores with its part of q, the float32 partial scores are
+    all-reduced and rounded to ``q.dtype`` as the whole dot product is,
+    every rank takes the same softmax, and the output's parts, one per
+    rank, are all-gathered.
     """
+    from repro_torch.models import parallel
+
     B, _, Hq, D = q.shape
-    _, T, Hkv, _ = k_cache.shape
+    _, T, Hkv, Dp = k_cache.shape
     G = Hq // Hkv
+    r = 0 if tp is None else tp.rank
     valid_len = torch.as_tensor(valid_len, device=q.device).broadcast_to((B,))
-    qg = q.reshape(B, Hkv, G, D)
+    qg = q[..., r * Dp:(r + 1) * Dp].reshape(B, Hkv, G, Dp)
     s = torch.einsum("bhgd,bthd->bhgt", qg, k_cache).to(torch.float32)
+    if tp is not None:
+        s = parallel.all_reduce(s, tp).to(q.dtype).to(torch.float32)
     s = s / math.sqrt(D)
     msk = torch.arange(T, device=q.device)[None, :] < valid_len[:, None]  # (B, T)
     s = torch.where(msk[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
-    o = torch.einsum("bhgt,bthd->bhgd", p, v_cache)
+    o = parallel.gather_last(torch.einsum("bhgt,bthd->bhgd", p, v_cache), tp)
     return o.reshape(B, 1, Hq, D)
 
 
@@ -276,24 +288,30 @@ def init_attn(p: Attention, gen: torch.Generator) -> Attention:
     return p
 
 
-def qkv_project(p: Attention, x, n_heads, n_kv, head_dim, positions, *, theta=1e4,
-                qk_norm=False):
+def qkv_project(p: Attention, x, head_dim, positions, *, theta=1e4, qk_norm=False,
+                wq=None, bq=None, whole=None):
     """x -> roped (q, k, v) with optional bias and per-head qk-norm.
 
     Each weight is cast to ``x.dtype`` at use, as in the reference (no copy
-    when it already has that dtype)."""
+    when it already has that dtype).  Tensor-parallel callers give ``wq``
+    and ``bq`` in place of ``p``'s (the rank's q heads) and ``whole``, which
+    maps the flat projections ``(q, k, v)`` to the ones the rank attends
+    with (column blocks all-gathered); the head counts follow from the
+    widths."""
     B, S, _ = x.shape
     dt = x.dtype
-    q = x @ p.wq.to(dt)
+    q = x @ (p.wq if wq is None else wq).to(dt)
     k = x @ p.wk.to(dt)
     v = x @ p.wv.to(dt)
     if hasattr(p, "bq"):
-        q = q + p.bq.to(dt)
+        q = q + (p.bq if bq is None else bq).to(dt)
         k = k + p.bk.to(dt)
         v = v + p.bv.to(dt)
-    q = q.reshape(B, S, n_heads, head_dim)
-    k = k.reshape(B, S, n_kv, head_dim)
-    v = v.reshape(B, S, n_kv, head_dim)
+    if whole is not None:
+        q, k, v = whole(q, k, v)
+    q = q.reshape(B, S, -1, head_dim)
+    k = k.reshape(B, S, -1, head_dim)
+    v = v.reshape(B, S, -1, head_dim)
     if qk_norm:
         # rmsnorm's default eps (1e-6), not cfg.rmsnorm_eps, as in the reference
         q = rmsnorm(q, p.q_norm.to(dt))

@@ -74,7 +74,8 @@ def prefill(cfg, params, batch, max_len: int):
     :func:`_sharded_serve`) when the parameters are DTensors."""
     if _is_sharded(params):
         return _sharded_serve(cfg, params, batch, None,
-                              lambda p, b, _: _mod(cfg).prefill(cfg, p, b, max_len))
+                              lambda b, _: _mod(cfg).prefill(cfg, params, b, max_len),
+                              max_len=max_len)
     return _mod(cfg).prefill(cfg, params, batch, max_len)
 
 
@@ -83,7 +84,7 @@ def decode_step(cfg, params, cache, tokens):
     :func:`_sharded_serve`) when the parameters are DTensors."""
     if _is_sharded(params):
         return _sharded_serve(cfg, params, {"tokens": tokens}, cache,
-                              lambda p, b, c: _mod(cfg).decode_step(cfg, p, c, b["tokens"]))
+                              lambda b, c: _mod(cfg).decode_step(cfg, params, c, b["tokens"]))
     return _mod(cfg).decode_step(cfg, params, cache, tokens)
 
 
@@ -103,68 +104,70 @@ def batch_shard(mesh) -> tuple[int, int]:
     return n, r
 
 
-def _sharded_serve(cfg, params, batch: dict, cache, fn):
-    """Serving on a module of DTensor parameters, FSDP-style as the
-    sharded train step: every weight is gathered whole
-    (``gathered_module``), and the rank runs ``fn(module, batch, cache)``,
-    the unsharded call, on its own batch rows.  A rank's rows are its
-    shard of the batch axes when the batch splits evenly over them (as
+def _sharded_serve(cfg, params, batch: dict, cache, fn, max_len=None):
+    """Serving on a module of DTensor parameters: ``fn(batch, cache)``, the
+    family's call on ``params``, runs on this rank's batch rows inside a
+    :class:`~repro_torch.models.parallel.Shards` context, so that each
+    layer's weights are gathered as the layer runs (over the FSDP axes,
+    tensor-parallel over ``model`` in the transformer families) and each
+    cache leaf stays in :func:`cache_specs`' placement: the rank's rows and
+    its slice of the ``model``-sharded dim, one layer gathered at a time
+    where a family computes every head.  A rank's rows are its shard of
+    the batch axes when the batch splits evenly over them (as
     :func:`batch_specs` and :func:`cache_specs` then shard it), else all
-    rows.  Inputs are DTensors placed by those specs or global tensors; a
-    cache leaf's ``model``-sharded axis is gathered for the rank's rows.
-    Returns the new cache placed by :func:`cache_specs` (each leaf's
-    ``model`` axis sliced back out; ``len``, replicated there, gathered
-    over the batch axes) and the logits sharded on their batch dim.  On a
-    mesh of one rank per batch shard and ``model`` size 1 the cache's
-    local tensors are the ones written in place."""
+    rows.  Inputs are DTensors placed by those specs (their local shards
+    are used as they are) or global tensors (the rank's part is cut out).
+    Returns the new cache placed by :func:`cache_specs` (``len``,
+    replicated there, gathered over the batch axes) and the logits sharded
+    on their batch dim.  The cache's local tensors are the ones written in
+    place."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
-    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import parallel
 
     mesh = next(params.parameters()).device_mesh
+    names = mesh.mesh_dim_names
     n, r = batch_shard(mesh)
     B = batch["tokens"].shape[0]
-    split = B % n == 0
+    split = B % n == 0 and n > 1
     axes = batch_axes(mesh)
-    others = tuple(a for a in mesh.mesh_dim_names if a not in axes)
+    nm = axis_sizes(mesh).get("model", 1)
+    like = cache if cache is not None else init_cache(cfg, B, max_len, device="meta")
+    specs = cache_specs(cfg, {k: SimpleNamespace(shape=v.shape) for k, v in like.items()}, mesh)
+    dims = {k: spec.index("model") - len(spec) for k, spec in specs.items()
+            if "model" in spec and nm > 1}
 
-    def rows(v, bdim):
-        """This rank's rows of ``v``, whole along every other dim."""
+    def layout(ndim, bdim, mdim) -> list:
+        """This rank's part: its rows on ``bdim``, its slice of ``mdim``."""
+        return [Shard(bdim) if a in axes and split else
+                Shard(ndim + mdim) if a == "model" and mdim is not None else Replicate()
+                for a in names]
+
+    def local(v, bdim, mdim=None):
+        pl = layout(v.ndim, bdim, mdim)
         if isinstance(v, DTensor):
-            pl = v.placements[mesh.mesh_dim_names.index(axes[0])]
-            v = mesh_lib.full_value(v, over=others)
-            if isinstance(pl, Shard) and pl.dim == bdim:
-                return v
-        return torch.chunk(v, n, dim=bdim)[r] if split and n > 1 else v
-
-    mine = {k: rows(v, 0) for k, v in batch.items()}
-    local_cache = None
-    if cache is not None:
-        local_cache = {k: rows(v, cache_batch_dim(k, v.shape)) for k, v in cache.items()}
-    work = mesh_lib.gathered_module(params, requires_grad=False)
-    new_cache, logits = fn(work, mine, local_cache)
-    del work
-
-    def placed(local, spec):
-        pl = placements(spec, mesh)
-        for dim, p in enumerate(pl):  # slice this rank's part of each non-batch dim back out
-            if isinstance(p, Shard) and mesh.mesh_dim_names[dim] not in axes:
-                local = torch.chunk(local, mesh.size(dim), dim=p.dim)[
-                    mesh.get_local_rank(mesh.mesh_dim_names[dim])]
-        return DTensor.from_local(local.contiguous(), mesh, pl, run_check=False)
-
-    row_pl = [Shard(0) if a in axes and split else Replicate() for a in mesh.mesh_dim_names]
-    shapes = {}  # each leaf's global shape, for its spec
-    for k, v in new_cache.items():
-        shapes[k] = list(v.shape)
+            if all(a == b or mesh.size(i) == 1
+                   for i, (a, b) in enumerate(zip(v.placements, pl))):
+                return v.to_local()
+            v = full_value(v)  # in another placement: this rank's part is cut out
         if split:
-            shapes[k][cache_batch_dim(k, v.shape)] *= n
-    specs = cache_specs(cfg, {k: SimpleNamespace(shape=s) for k, s in shapes.items()}, mesh)
+            v = torch.chunk(v, n, dim=bdim)[r]
+        if mdim is not None:
+            v = torch.chunk(v, nm, dim=mdim)[mesh.get_local_rank("model")]
+        return v
+
+    mine = {k: local(v, 0) for k, v in batch.items()}
+    local_cache = None if cache is None else {
+        k: local(v, cache_batch_dim(k, v.shape), dims.get(k)) for k, v in cache.items()}
+    with parallel.sharded(parallel.Shards(mesh, split=split, cache_dims=dims)):
+        new_cache, logits = fn(mine, local_cache)
+
+    row_pl = [Shard(0) if a in axes and split else Replicate() for a in names]
     out = {}
     for k, v in new_cache.items():
-        if k == "len" and split and n > 1:
-            v = mesh_lib.full_value(DTensor.from_local(v, mesh, row_pl, run_check=False))
-        out[k] = placed(v, specs[k])
+        if k == "len" and split:
+            v = full_value(DTensor.from_local(v, mesh, row_pl, run_check=False))
+        out[k] = DTensor.from_local(v, mesh, placements(specs[k], mesh), run_check=False)
     return out, DTensor.from_local(logits, mesh, row_pl, run_check=False)
 
 

@@ -5,6 +5,11 @@ residual Mamba-1 blocks whose decode carries O(1) state per slot (a conv
 window and an SSM state per layer), with no KV cache.  As in
 :mod:`repro_torch.models.transformer`, one module per layer where the
 reference stacks and scans; caches are written in place.
+
+Sharded (:mod:`~repro_torch.models.parallel`): each layer's parameters
+are gathered whole (over every axis, ``model`` too: this family computes
+no tensor-parallel part) inside its body, and each layer's states are
+gathered over ``model`` for the rank's rows, then its slice written back.
 """
 from __future__ import annotations
 
@@ -12,13 +17,15 @@ import torch
 from torch import nn
 
 from repro_torch.core.relation import resolve_device
-from repro_torch.models import ssm
+from repro_torch.models import parallel, ssm
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.transformer import (
     _logits,
     _param,
     ce_loss,
     compute_dtype,
+    embed_tokens,
+    final_norm,
     init_head,
     next_token_targets,
     remat,
@@ -84,23 +91,19 @@ def init_params(cfg, seed: int = 0, *, device=None, dtype=None) -> SSMModel:
     return init_head(model, gen)
 
 
-def _embed(cfg, params, tokens):
-    # the reference casts the table, then gathers: the same values
-    return params.embed[tokens.long()].to(compute_dtype(cfg))
-
-
 def forward(cfg, params: SSMModel, batch):
     """Full-sequence forward to the final hidden states (B, S, d)."""
-    x = _embed(cfg, params, batch["tokens"])
+    x = embed_tokens(cfg, params, batch["tokens"])
 
     def body(x, lp):
+        lp = parallel.layer(lp)
         h = rmsnorm(x, lp.ln.to(x.dtype), cfg.rmsnorm_eps)
         return x + ssm.mamba1(lp.mamba, h, d_state=cfg.ssm_state, chunk=cfg.ssm_chunk)
 
     body = remat(cfg, body)
     for lp in params.layers:
         x = body(x, lp)
-    return rmsnorm(x, params.final_norm.to(x.dtype), cfg.rmsnorm_eps)
+    return final_norm(cfg, params, x)
 
 
 def loss_fn(cfg, params: SSMModel, batch):
@@ -128,30 +131,33 @@ def prefill(cfg, params: SSMModel, batch, max_len: int):
     (cache, last-token logits).  The conv state is the *pre-conv* window."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = _embed(cfg, params, tokens)
-    cache = init_cache(cfg, B, max_len, device=params.device)
+    x = embed_tokens(cfg, params, tokens)
+    cache = parallel.new_cache(lambda dev: init_cache(cfg, B, max_len, device=dev),
+                               params.device)
     for i, lp in enumerate(params.layers):
+        lp = parallel.layer(lp)
         h = rmsnorm(x, lp.ln.to(x.dtype), cfg.rmsnorm_eps)
         y, c = ssm.mamba1_prefill(lp.mamba, h, d_state=cfg.ssm_state, chunk=cfg.ssm_chunk)
         x = x + y
-        cache["conv"][i] = c["conv"]
-        cache["ssm"][i] = c["ssm"]
+        parallel.cache_store(cache, "conv", i, c["conv"])
+        parallel.cache_store(cache, "ssm", i, c["ssm"])
     cache["len"].fill_(S)
-    x = rmsnorm(x, params.final_norm.to(x.dtype), cfg.rmsnorm_eps)
+    x = final_norm(cfg, params, x)
     return cache, _logits(params, x[:, -1])
 
 
 def decode_step(cfg, params: SSMModel, cache, tokens):
     """One token per slot. tokens: (B, 1) -> (cache', logits (B, V)); the
     states are written in place and every slot's clock advances."""
-    xt = _embed(cfg, params, tokens[:, 0])
+    xt = embed_tokens(cfg, params, tokens[:, 0])
     for i, lp in enumerate(params.layers):
+        lp = parallel.layer(lp)
         h = rmsnorm(xt, lp.ln.to(xt.dtype), cfg.rmsnorm_eps)
-        c, y = ssm.mamba1_decode(lp.mamba, {"conv": cache["conv"][i], "ssm": cache["ssm"][i]},
-                                 h, d_state=cfg.ssm_state)
+        state = {k: parallel.cache_layer(cache, k, i) for k in ("conv", "ssm")}
+        c, y = ssm.mamba1_decode(lp.mamba, state, h, d_state=cfg.ssm_state)
         xt = xt + y
-        cache["conv"][i] = c["conv"]
-        cache["ssm"][i] = c["ssm"]
-    xt = rmsnorm(xt, params.final_norm.to(xt.dtype), cfg.rmsnorm_eps)
+        parallel.cache_store(cache, "conv", i, c["conv"])
+        parallel.cache_store(cache, "ssm", i, c["ssm"])
+    xt = final_norm(cfg, params, xt)
     return {"conv": cache["conv"], "ssm": cache["ssm"], "len": cache["len"] + 1}, \
         _logits(params, xt)

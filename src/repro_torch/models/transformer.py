@@ -19,17 +19,36 @@ positions, computed in sequence chunks by :func:`ce_loss`, which never
 holds ``(B, S, V)`` logits (its backward recomputes each chunk's logits).
 Under autograd each layer runs inside ``torch.utils.checkpoint`` as the
 config's ``remat`` asks (:func:`remat`).
+
+Sharded (a module of DTensor parameters inside a
+:class:`~repro_torch.models.parallel.Shards` context): each layer's
+parameters are gathered over the FSDP axes inside its (remat) body, and
+where ``model`` has more than one rank the same layer bodies compute
+tensor-parallel (:func:`_tp_plan`; the ``parallel`` helpers they call are
+identities otherwise): the rank's q heads and ``d_ff`` slice (its column
+blocks of ``wq``, ``w1``, ``w3`` and of each MoE expert), K and V
+all-gathered from the column blocks where those are not whole KV heads,
+the row-parallel ``wo`` and ``w2`` summed over ``model``; the vocabulary
+is split the same way for the embedding, the cross-entropy and the
+logits.  Where a rank's ``wq`` columns are not whole heads (24 heads on
+16 ranks), ``wq``, ``bq`` and ``wo`` are gathered over ``model`` for that
+layer and the rank computes heads ``⌊r·H/16⌋`` to ``⌊(r+1)·H/16⌋``.
+Decode reads the cache in ``cache_specs``' layout, each rank its slice of
+every head's ``head_dim``, the partial scores all-reduced
+(:func:`~repro_torch.models.layers.decode_attention`).
 """
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.relation import resolve_device
-from repro_torch.models import kvcache, moe
+from repro_torch.models import kvcache, moe, parallel
 from repro_torch.models.layers import (
     Attention,
     attention,
@@ -161,41 +180,150 @@ def _ffn(cfg, lp: DecoderLayer, h):
     return swiglu(h, m.w1.to(h.dtype), m.w3.to(h.dtype), m.w2.to(h.dtype))
 
 
-def layer_fwd(cfg, lp: DecoderLayer, x, positions):
-    """Full-sequence layer (train / prefill). Returns (x', (k, v))."""
-    h = rmsnorm(x, lp.ln1.to(x.dtype), cfg.rmsnorm_eps)
-    q, k, v = qkv_project(
-        lp.attn, h, cfg.n_heads, cfg.n_kv, cfg.head_dim, positions,
-        theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
-    )
+def layer_fwd(cfg, lp: DecoderLayer, x, positions, plan=None):
+    """Full-sequence layer (train / prefill). Returns (x', (k, v)).
+
+    Tensor-parallel with a ``plan`` (:func:`_tp_plan`; ``lp`` then holds
+    the rank's column blocks of ``wq wk wv w1 w3`` and row blocks of ``wo
+    w2``): the rank's q heads ``plan.q`` against the KV heads they read,
+    its ``d_ff`` slice, the partial outputs summed over ``model``; (k, v)
+    are the KV heads the rank computed (every head unless
+    ``plan.kv_local``)."""
+    tp = None if plan is None else plan.tp
+    dt = x.dtype
+    B, S, _ = x.shape
+    a = lp.attn
+    wq, bq, wo = a.wq, getattr(a, "bq", None), a.wo
+    whole = None
+    if tp is not None:
+        if not plan.whole:  # the rank's columns split a head: its heads from the whole
+            D = cfg.head_dim
+            lo, hi = plan.q
+            wq, wo = wq[:, lo * D:hi * D], wo[lo * D:hi * D]
+            bq = None if bq is None else bq[lo * D:hi * D]
+        if not plan.kv_local:  # every head's K and V; the rank's q heads read some
+            def whole(q, k, v):
+                return q, parallel.gather_last(k, tp), parallel.gather_last(v, tp)
+    h = parallel.enter(rmsnorm(x, lp.ln1.to(dt), cfg.rmsnorm_eps), tp)
+    q, k, v = qkv_project(a, h, cfg.head_dim, positions, theta=cfg.rope_theta,
+                          qk_norm=cfg.qk_norm, wq=wq, bq=bq, whole=whole)
+    ka, va = k, v
+    if whole is not None:
+        k_lo, k_hi, idx = parallel.gqa_heads(*plan.q, cfg.n_heads, cfg.n_kv)
+        ka, va = k[:, :, k_lo:k_hi], v[:, :, k_lo:k_hi]
+        if idx is not None:
+            ka, va = ka[:, :, idx], va[:, :, idx]
     o = attention(
-        q, k, v, causal=True, window=cfg.window,
+        q, ka, va, causal=True, window=cfg.window,
         q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
     )
-    B, S, _, _ = o.shape
-    x = x + o.reshape(B, S, -1) @ lp.attn.wo.to(x.dtype)
-    h = rmsnorm(x, lp.ln2.to(x.dtype), cfg.rmsnorm_eps)
-    x = x + _ffn(cfg, lp, h)
+    x = x + parallel.reduce(o.reshape(B, S, -1) @ wo.to(dt), tp)
+    h = parallel.enter(rmsnorm(x, lp.ln2.to(dt), cfg.rmsnorm_eps), tp)
+    x = x + parallel.reduce(_ffn(cfg, lp, h), tp)
     return x, (k, v)
 
 
-def layer_decode(cfg, lp: DecoderLayer, x, k_cache, v_cache, length):
-    """One-token layer against a cache (written in place). x: (B, 1, d)."""
-    h = rmsnorm(x, lp.ln1.to(x.dtype), cfg.rmsnorm_eps)
-    pos = torch.as_tensor(length, device=x.device).broadcast_to((x.shape[0],))[:, None]
-    q, k, v = qkv_project(
-        lp.attn, h, cfg.n_heads, cfg.n_kv, cfg.head_dim, pos,
-        theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
-    )
-    k_cache, v_cache = kvcache.cache_write_token(k_cache, v_cache, k, v, length)
+def layer_decode(cfg, lp: DecoderLayer, x, k_cache, v_cache, length, tp=None):
+    """One-token layer against a cache (written in place). x: (B, 1, d).
+
+    Tensor-parallel over ``tp`` (``lp`` holding the rank's column and row
+    blocks, the caches its part of every head's ``head_dim``): q, k and v
+    from the column blocks all-gathered, the new token's part written, the
+    partial scores summed (:func:`~repro_torch.models.layers.
+    decode_attention`), the output's row block through the rank's ``wo``
+    rows and the partial sums summed."""
+    n, r = (1, 0) if tp is None else (tp.size, tp.rank)
+    dt = x.dtype
+    B = x.shape[0]
+    h = rmsnorm(x, lp.ln1.to(dt), cfg.rmsnorm_eps)
+    pos = torch.as_tensor(length, device=x.device).broadcast_to((B,))[:, None]
+    whole = None if tp is None else (
+        lambda *qkv: [parallel.gather_last(t, tp) for t in qkv])
+    q, k, v = qkv_project(lp.attn, h, cfg.head_dim, pos, theta=cfg.rope_theta,
+                          qk_norm=cfg.qk_norm, whole=whole)
+    D = cfg.head_dim // n
+    k_cache, v_cache = kvcache.cache_write_token(k_cache, v_cache, k[..., r * D:(r + 1) * D],
+                                                 v[..., r * D:(r + 1) * D], length)
     T = k_cache.shape[1]
     valid = torch.clamp(length + 1, max=T)
-    o = decode_attention(q, k_cache, v_cache, valid)
-    B = x.shape[0]
-    x = x + o.reshape(B, 1, -1) @ lp.attn.wo.to(x.dtype)
-    h = rmsnorm(x, lp.ln2.to(x.dtype), cfg.rmsnorm_eps)
-    x = x + _ffn(cfg, lp, h)
+    o = decode_attention(q, k_cache, v_cache, valid, tp).reshape(B, 1, -1)
+    rows = o.shape[-1] // n
+    x = x + parallel.reduce(o[..., r * rows:(r + 1) * rows] @ lp.attn.wo.to(dt), tp)
+    h = rmsnorm(x, lp.ln2.to(dt), cfg.rmsnorm_eps)
+    x = x + parallel.reduce(_ffn(cfg, lp, h), tp)
     return x, k_cache, v_cache
+
+
+# --------------------------------------------------------------------------
+# Tensor parallelism over ``model``
+# --------------------------------------------------------------------------
+
+
+def _tp_plan(cfg, lp: DecoderLayer, *, decode: bool):
+    """How layer ``lp`` (DTensor parameters) computes tensor-parallel in
+    the open sharded context, or None where it cannot: no context, one
+    ``model`` rank, fewer q heads than ranks, a projection that ``model``
+    does not shard on its column (``wq wk wv w1 w3``, the biases) or row
+    (``wo w2``) dim, or in decode a KV cache whose ``head_dim`` it does not
+    shard.  The layer then runs every head on every rank, its weights
+    gathered over ``model`` too."""
+    s = parallel.current()
+    if s is None or s.tp is None:
+        return None
+    key = (id(lp), decode)
+    if key not in s.plans:
+        s.plans[key] = _make_tp_plan(cfg, lp, s, decode)
+    return s.plans[key]
+
+
+def _make_tp_plan(cfg, lp, s, decode: bool):
+    a = lp.attn
+    pre = "moe" if cfg.family == "moe" else "mlp"
+    ffn = getattr(lp, pre)
+    col = {f"attn.{n}": getattr(a, n) for n in ("wq", "wk", "wv", "bq", "bk", "bv")
+           if hasattr(a, n)}
+    col.update({f"{pre}.w1": ffn.w1, f"{pre}.w3": ffn.w3})
+    row = {"attn.wo": a.wo, f"{pre}.w2": ffn.w2}
+    if cfg.n_heads < s.nm or any(s.model_dim(p) != -1 for p in col.values()) \
+            or any(s.model_dim(p) != -2 for p in row.values()):
+        return None
+    if decode and any(s.cache_dims.get(k) != -1 for k in ("k", "v")):
+        return None
+    modes = dict.fromkeys([*col, *row], "local")
+    # replicated over ``model`` and used on the rank's part only
+    modes.update({"attn.q_norm": "sum", "attn.k_norm": "sum", "moe.router": "sum"})
+    whole = cfg.n_heads % s.nm == 0
+    if not (decode or whole):  # the rank's columns split a head: its heads from the whole
+        modes.update({"attn.wq": "sum", "attn.bq": "sum", "attn.wo": "sum"})
+    return SimpleNamespace(tp=s.tp, modes=modes, q=parallel.head_range(cfg.n_heads, s.tp),
+                           whole=whole, kv_local=whole and cfg.n_kv % s.nm == 0)
+
+
+def _layer_fwd_at(cfg, lp: DecoderLayer, x, positions, collect_kv: bool = False):
+    """:func:`layer_fwd` on layer module ``lp`` as it is placed: its
+    parameters gathered for this rank (tensor-parallel where
+    :func:`_tp_plan` allows); with ``collect_kv`` (k, v) of every KV head."""
+    plan = _tp_plan(cfg, lp, decode=False)
+    x, (k, v) = layer_fwd(cfg, parallel.layer(lp, plan and plan.modes), x, positions, plan)
+    if collect_kv and plan is not None and plan.kv_local:
+        with torch.no_grad():
+            k, v = (parallel.gather_last(t.flatten(2), plan.tp).unflatten(2, (-1, cfg.head_dim))
+                    for t in (k, v))
+    return x, (k, v)
+
+
+def _layer_decode_at(cfg, lp: DecoderLayer, x, cache, i: int, length):
+    """:func:`layer_decode` of layer ``i`` (module ``lp``) as it is placed,
+    against ``cache`` (written in place); returns x'."""
+    plan = _tp_plan(cfg, lp, decode=True)
+    if plan is not None:
+        return layer_decode(cfg, parallel.layer(lp, plan.modes), x, cache["k"][i],
+                            cache["v"][i], length, plan.tp)[0]
+    kc, vc = parallel.cache_layer(cache, "k", i), parallel.cache_layer(cache, "v", i)
+    x, kc, vc = layer_decode(cfg, parallel.layer(lp), x, kc, vc, length)
+    parallel.cache_store(cache, "k", i, kc)
+    parallel.cache_store(cache, "v", i, vc)
+    return x
 
 
 # --------------------------------------------------------------------------
@@ -203,14 +331,28 @@ def layer_decode(cfg, lp: DecoderLayer, x, k_cache, v_cache, length):
 # --------------------------------------------------------------------------
 
 
+def embed_tokens(cfg, params, tokens):
+    """``params.embed[tokens]`` in the compute dtype (the reference casts
+    the table, then gathers: the same values).  Tokens may be int32 (the
+    reference's type); they are indexed as int64.  Sharded: a
+    vocabulary-parallel lookup where ``model`` shards the table's rows,
+    else the table gathered."""
+    tp = parallel.vocab_tp(params.embed, -2)
+    table = parallel.param(params.embed, "local" if tp else "same")
+    x = parallel.embed_lookup(table, tokens.long(), tp)
+    return x.to(compute_dtype(cfg))
+
+
+def final_norm(cfg, params, x, name: str = "final_norm"):
+    """RMSNorm of ``x`` with the model's ``name`` weight."""
+    return rmsnorm(x, parallel.param(getattr(params, name)).to(x.dtype), cfg.rmsnorm_eps)
+
+
 def embed_inputs(cfg, params: Transformer, batch):
     """Token embeddings, with stub-frontend embeddings prepended when the
-    batch carries ``embeds``.  Tokens may be int32 (the reference's type);
-    they are indexed as int64."""
-    tokens = batch["tokens"].long()
+    batch carries ``embeds``."""
     dtype = compute_dtype(cfg)
-    # the reference casts the table, then gathers: the same values
-    x = params.embed[tokens].to(dtype)
+    x = embed_tokens(cfg, params, batch["tokens"])
     n_prefix = 0
     if batch.get("embeds") is not None:
         pre = batch["embeds"].to(dtype)
@@ -231,24 +373,28 @@ def remat(cfg, fn):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
-def forward(cfg, params: Transformer, batch, *, collect_kv: bool = False):
+def forward(cfg, params: Transformer, batch, *, collect_kv: bool = False, on_kv=None):
     """Full-sequence forward to final hidden states.
 
     Returns (hidden (B,S,d), n_prefix, kv or None), kv as layer-stacked
-    ``(k, v)`` of shape (L, B, S, Hkv, D)."""
+    ``(k, v)`` of shape (L, B, S, Hkv, D) with ``collect_kv``; with
+    ``on_kv``, ``on_kv(i, k, v)`` is called with each layer's instead."""
     x, n_prefix = embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).broadcast_to((B, S))
     # prefill collects each layer's K/V and runs without autograd, where
     # ``remat`` returns the body as it is
-    body = remat(cfg, lambda x, lp: layer_fwd(cfg, lp, x, positions))
+    keep = collect_kv or on_kv is not None
+    body = remat(cfg, lambda x, lp: _layer_fwd_at(cfg, lp, x, positions, keep))
     ks, vs = [], []
-    for lp in params.layers:
-        x, (k, v) = body(x, lp)
-        if collect_kv:
-            ks.append(k)
-            vs.append(v)
-    x = rmsnorm(x, params.final_norm.to(x.dtype), cfg.rmsnorm_eps)
+    for i, lp in enumerate(params.layers):
+        x, kv = body(x, lp)
+        if on_kv is not None:
+            on_kv(i, *kv)
+        elif collect_kv:
+            ks.append(kv[0])
+            vs.append(kv[1])
+    x = final_norm(cfg, params, x)
     kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
     return x, n_prefix, kvs
 
@@ -257,29 +403,41 @@ class _ChunkedCE(torch.autograd.Function):
     """Masked mean next-token cross-entropy of ``hidden @ lm_head``, chunk by
     chunk along the sequence: the forward keeps each position's float32
     log-sum-exp, the backward recomputes each chunk's logits, so no more
-    than one chunk's ``(B, chunk, V)`` logits are ever live."""
+    than one chunk's ``(B, chunk, V)`` logits are ever live.
+
+    Vocabulary-parallel with ``tp`` (``lm_head`` the rank's column block):
+    the row max and the sum of exponentials are all-reduced into the
+    log-sum-exp, the target's logit comes from the rank whose block holds
+    it; ``dw`` stays on the rank's block and the partial ``dh`` is
+    all-reduced."""
 
     @staticmethod
-    def forward(ctx, hidden, lm_head, targets, mask, chunk):
+    def forward(ctx, hidden, lm_head, targets, mask, chunk, tp=None):
         S = hidden.shape[1]
         w = lm_head.to(hidden.dtype)
+        V = w.shape[1]
+        targets = targets - (0 if tp is None else tp.rank * V)
+        hit = (targets >= 0) & (targets < V)  # the targets in this rank's columns
+        targets = targets.clamp(0, V - 1)
         tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
         lses = []
         for lo in range(0, S, chunk):
             logits = (hidden[:, lo:lo + chunk] @ w).to(torch.float32)
-            lse = torch.logsumexp(logits, dim=-1)
+            m = parallel.all_reduce(logits.amax(-1), tp, dist.ReduceOp.MAX)
+            lse = m + torch.log(parallel.all_reduce(torch.exp(logits - m[..., None]).sum(-1), tp))
             tgt = logits.gather(-1, targets[:, lo:lo + chunk, None])[..., 0]
+            tgt = parallel.all_reduce(torch.where(hit[:, lo:lo + chunk], tgt, 0.0), tp)
             tot += ((lse - tgt) * mask[:, lo:lo + chunk]).sum()
             lses.append(lse)
             del logits
         cnt = torch.clamp(mask.sum(), min=1.0)
-        ctx.save_for_backward(hidden, lm_head, targets, mask, torch.cat(lses, 1), cnt)
-        ctx.chunk = chunk
+        ctx.save_for_backward(hidden, lm_head, targets, hit, mask, torch.cat(lses, 1), cnt)
+        ctx.chunk, ctx.tp = chunk, tp
         return tot / cnt
 
     @staticmethod
     def backward(ctx, g):
-        hidden, lm_head, targets, mask, lse, cnt = ctx.saved_tensors
+        hidden, lm_head, targets, hit, mask, lse, cnt = ctx.saved_tensors
         chunk = ctx.chunk
         S, d = hidden.shape[1], hidden.shape[2]
         w = lm_head.to(hidden.dtype)
@@ -291,13 +449,14 @@ class _ChunkedCE(torch.autograd.Function):
             # d loss / d logits = (softmax - onehot(target)) * mask * g / cnt
             p = torch.exp((xc @ w).to(torch.float32) - lse[:, lo:lo + chunk, None])
             p.scatter_add_(-1, targets[:, lo:lo + chunk, None],
-                           torch.full_like(p[..., :1], -1.0))
+                           -hit[:, lo:lo + chunk, None].to(p.dtype))
             p *= coef[:, lo:lo + chunk, None]
             dl = p.to(hidden.dtype)
             del p
             dh[:, lo:lo + chunk] = dl @ w.T
             dw += (xc.reshape(-1, d).T @ dl.reshape(-1, dl.shape[-1])).to(torch.float32)
-        return dh, dw.to(lm_head.dtype), None, None, None
+        parallel.all_reduce(dh, ctx.tp)
+        return dh, dw.to(lm_head.dtype), None, None, None, None
 
 
 def ce_loss(cfg, hidden, lm_head, targets, mask):
@@ -308,9 +467,12 @@ def ce_loss(cfg, hidden, lm_head, targets, mask):
     * mask) / max(sum(mask), 1)``.  The reference takes chunks of the
     largest divisor of S that is ≤ ``cfg.ce_chunk``; the port takes chunks
     of ``cfg.ce_chunk`` and a shorter last one (the same sum in another
-    order)."""
-    return _ChunkedCE.apply(hidden, lm_head, targets.long(), mask.to(torch.float32),
-                            min(cfg.ce_chunk, hidden.shape[1]))
+    order).  Sharded: vocabulary-parallel where ``model`` shards
+    ``lm_head``'s columns, else from ``lm_head`` gathered."""
+    chunk = min(cfg.ce_chunk, hidden.shape[1])
+    tp = parallel.vocab_tp(lm_head, -1)
+    return _ChunkedCE.apply(hidden, parallel.param(lm_head, "local" if tp else "same"),
+                            targets.long(), mask.to(torch.float32), chunk, tp)
 
 
 def next_token_targets(tokens, n_prefix: int = 0):
@@ -346,15 +508,27 @@ def init_cache(cfg, batch: int, max_len: int, *, device=None):
 
 
 def _logits(params: Transformer, h):
-    # the reference's `h @ lm_head.astype(h.dtype)`, then float32
-    return (h @ params.lm_head.to(h.dtype)).to(torch.float32)
+    """The reference's ``h @ lm_head.astype(h.dtype)``, then float32
+    (sharded: vocabulary-parallel, all-gathered)."""
+    tp = parallel.vocab_tp(params.lm_head, -1)
+    w = parallel.param(params.lm_head, "local" if tp else "same")
+    return parallel.gather_last((h @ w.to(h.dtype)).to(torch.float32), tp)
 
 
 def prefill(cfg, params: Transformer, batch, max_len: int):
-    """Encode the prompt; returns (cache, last-token logits)."""
-    hidden, _, kvs = forward(cfg, params, batch, collect_kv=True)
-    cache = init_cache(cfg, batch["tokens"].shape[0], max_len, device=params.device)
-    cache = kvcache.cache_write_prefill(cache, kvs[0], kvs[1])
+    """Encode the prompt; returns (cache, last-token logits).  Each layer's
+    K and V are written as the layer ends (sharded: the rank's slice)."""
+    B = batch["tokens"].shape[0]
+    cache = parallel.new_cache(lambda dev: init_cache(cfg, B, max_len, device=dev),
+                               params.device)
+
+    def keep(i, k, v):
+        kvcache.cache_write_prefill_layer(cache["k"][i], cache["v"][i],
+                                          parallel.cache_part("k", k),
+                                          parallel.cache_part("v", v))
+
+    hidden, _, _ = forward(cfg, params, batch, on_kv=keep)
+    cache["len"] = torch.full((B,), hidden.shape[1], dtype=torch.int64, device=hidden.device)
     return cache, _logits(params, hidden[:, -1])
 
 
@@ -364,10 +538,10 @@ def decode_step(cfg, params: Transformer, cache, tokens):
     Every slot's clock advances, active or not, as in the reference.  The
     returned cache holds the same ``k``/``v`` tensors, written in place, and
     a new ``len``."""
-    x = params.embed[tokens.long()].to(compute_dtype(cfg))
+    x = embed_tokens(cfg, params, tokens)
     length = cache["len"]
     for i, lp in enumerate(params.layers):
-        x, _, _ = layer_decode(cfg, lp, x, cache["k"][i], cache["v"][i], length)
-    x = rmsnorm(x, params.final_norm.to(x.dtype), cfg.rmsnorm_eps)
+        x = _layer_decode_at(cfg, lp, x, cache, i, length)
+    x = final_norm(cfg, params, x)
     logits = _logits(params, x[:, -1])
     return {"k": cache["k"], "v": cache["v"], "len": length + 1}, logits

@@ -10,26 +10,31 @@ state's tensors in place.
 
 A sharded state (``elastic.reshard_state`` with :func:`state_specs`) holds
 DTensors, each rank the shards the reference's per-chip arguments hold.
-The step then runs FSDP-style data parallelism: every parameter is
-gathered to its full value (``launch.mesh.gathered_module``), the rank
-runs the forward and backward of the unsharded step on its batch shard
-(the batch is the global batch, every rank the same, or DTensors sharded
-over the batch axes), and each full gradient, a ``Partial`` sum over the
-batch axes, is reduce-scattered into its parameter's placement and divided
-by the number of batch shards.  Every row has the same number of targets
-and every shard the same number of rows, so the mean of the shards' mean
-losses is the global mean.  A global batch whose microbatches do not split
-evenly over the batch axes is not sharded: every rank runs all of it, as
-the reference's ``batch_specs`` then replicates it.  The same function
-runs both states.
+The step then computes what those placements give each rank, as XLA
+partitions the reference's step (:mod:`repro_torch.models.parallel`): the
+rank runs the forward and backward on its batch shard (the batch is the
+global batch, every rank the same, or DTensors sharded over the batch
+axes) from its local shards, each layer's parameters gathered over the
+FSDP axes just before the layer runs and again when the backward
+recomputes it, and each gradient reduce-scattered into its parameter's
+placement as soon as autograd produces it (per microbatch, as the
+reference's scan over a sharded accumulator), accumulating in the local
+shard; where ``model`` has more than one rank the transformer families
+compute tensor-parallel over it.  The summed gradients are divided in
+place by the microbatches and the batch shards.  Every row has the same
+number of targets and every shard the same number of rows, so the mean of
+the shards' mean losses is the global mean.  A global batch whose
+microbatches do not split evenly over the batch axes is not sharded: every
+rank runs all of it, as the reference's ``batch_specs`` then replicates
+it.  The same function runs both states; on a mesh of one rank the
+sharded step is the unsharded one, bit for bit.
 """
 from __future__ import annotations
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate
 
-from repro_torch.launch import mesh as mesh_lib
-from repro_torch.models import model
+from repro_torch.models import model, parallel
 from repro_torch.train import grad_compress, optimizer
 
 
@@ -45,10 +50,12 @@ def init_state(cfg, seed: int, opt_cfg: optimizer.OptConfig, *, compress_frac: f
     return state
 
 
-def _loss_and_grads(cfg, params, batch: dict, microbatches: int):
+def _loss_and_grads(cfg, params, batch: dict, microbatches: int, leaves=None):
     """Mean loss and float32 gradients (a list in ``parameters()`` order)
     of ``batch`` split into ``microbatches`` along its leading axis;
-    autograd sums their gradients in the parameters' ``.grad``."""
+    autograd sums their gradients in the ``.grad`` of ``leaves`` (default
+    the parameters), which are divided in place."""
+    leaves = list(params.parameters()) if leaves is None else leaves
     parts = zip(*(torch.chunk(v, microbatches) for v in batch.values()))
     loss = 0
     for part in parts:
@@ -56,12 +63,13 @@ def _loss_and_grads(cfg, params, batch: dict, microbatches: int):
         l_mb = model.loss_fn(cfg, params, mb)
         l_mb.backward()
         loss = loss + l_mb.detach()
-    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-             for p in params.parameters()]
-    params.zero_grad(set_to_none=True)
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
+    for p in leaves:
+        p.grad = None
     if microbatches > 1:
         loss = loss / microbatches
-        grads = [g / microbatches for g in grads]
+        for g in grads:
+            g.div_(microbatches)
     return loss, grads
 
 
@@ -99,21 +107,19 @@ def _sharded_loss_and_grads(cfg, params, batch: dict, microbatches: int):
     mesh = next(params.parameters()).device_mesh
     axes = model.batch_axes(mesh)
     mine, n, microbatches = _local_batch(batch, mesh, microbatches)
-    work = mesh_lib.gathered_module(params)
-    loss, full = _loss_and_grads(cfg, work, mine, microbatches)
-    del work
-    # each rank's value is its batch shard's part of a sum over the batch
+    shards = parallel.Shards(mesh, split=n > 1)
+    leaves = shards.track(params)
+    with parallel.sharded(shards):
+        loss, local = _loss_and_grads(cfg, params, mine, microbatches, leaves)
+    grads = []
+    for p, g in zip(params.parameters(), local):
+        if n > 1:  # on the local shard: no DTensor op in the step
+            g.div_(n)
+        grads.append(DTensor.from_local(g, mesh, p.placements, run_check=False,
+                                        shape=p.shape, stride=p.stride()))
+    # each rank's loss is its batch shard's part of a sum over the batch
     # axes, or with one shard the whole value
     summed = [Partial() if a in axes and n > 1 else Replicate() for a in mesh.mesh_dim_names]
-    grads = []
-    for p in params.parameters():
-        g = full.pop(0)  # each full gradient is freed once it is redistributed
-        g = DTensor.from_local(g, mesh, summed, run_check=False).redistribute(
-            mesh, p.placements)
-        if n > 1:  # on the local shard: no DTensor op in the step
-            g = DTensor.from_local(g.to_local() / n, mesh, g.placements, run_check=False,
-                                   shape=g.shape, stride=g.stride())
-        grads.append(g)
     loss = DTensor.from_local(loss, mesh, summed, run_check=False).full_tensor()
     return (loss / n if n > 1 else loss), grads
 

@@ -15,9 +15,11 @@ meets the gloo groups other port tests start in the same worker, and the
 imports are paid once: the production meshes on 256 and 512 fake ranks;
 each rank's argument bytes of the full-size ``train_4k`` state of
 qwen3-0.6b and olmoe-1b-7b on them, held against the reference's
-``state_specs`` on ``AbstractMesh``; and the collective bytes of a SMOKE
-train step on a fake ``(2, 2)`` mesh, held against their sum over the
-reference's specs.
+``state_specs`` on ``AbstractMesh``; the collective bytes of a SMOKE
+train step on a fake ``(2, 2)`` mesh (per-layer gathers, tensor
+parallelism over ``model``), held against their sum over the reference's
+specs; and the per-rank bytes of that step and of a SMOKE prefill and
+decode, held below what the whole-model gather held.
 """
 import dataclasses
 import io
@@ -35,6 +37,13 @@ torch = pytest.importorskip("torch")
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 B, S = 4, 256  # SMOKE qwen3-0.6b: a shape test_torch_models.py compiles
+S_TRAIN = 64  # the fake (2, 2) train step's sequence
+#: the reduced cells traced on the fake (2, 2) mesh: (kind, seq, batch), and
+#: each one's per-rank bytes (arguments + the temporaries' peak) as the
+#: tree before per-layer gathers and tensor parallelism traced it, when
+#: every weight (and the decode cache, over ``model``) was gathered whole
+SMOKE_CELLS = {"train": (S_TRAIN, B), "prefill": (256, B), "decode": (256, 8)}
+WHOLE_GATHER_BYTES = {"train": 6_409_732, "prefill": 2_774_528, "decode": 2_015_312}
 FAKE_TIMEOUT_S = 240
 STATE_ARCHS = ("qwen3-0.6b", "olmoe-1b-7b")
 SMOKE_MESH = {"data": 2, "model": 2}
@@ -79,11 +88,15 @@ def _fake_main() -> dict:
     mesh_lib.make_fake_group(4)
     mesh = init_device_mesh("cpu", tuple(SMOKE_MESH.values()),
                            mesh_dim_names=tuple(SMOKE_MESH))
-    rec = dryrun.run_cell("qwen3-0.6b", ShapeSpec("train_smoke", 64, B, "train"), mesh=mesh,
-                          device="cpu", overrides=_smoke_overrides("qwen3-0.6b"),
+    rec = dryrun.run_cell("qwen3-0.6b", ShapeSpec("train_smoke", *SMOKE_CELLS["train"], "train"),
+                          mesh=mesh, device="cpu", overrides=_smoke_overrides("qwen3-0.6b"),
                           verbose=False)
     out["smoke_train"] = rec
-    sort = dryrun.run_cell("olmoe-1b-7b", ShapeSpec("train_smoke", 64, B, "train"), mesh=mesh,
+    out["smoke_serve"] = {
+        kind: dryrun.run_cell("qwen3-0.6b", ShapeSpec(f"{kind}_smoke", *SMOKE_CELLS[kind], kind),
+                              mesh=mesh, device="cpu", overrides=_smoke_overrides("qwen3-0.6b"),
+                              verbose=False) for kind in ("prefill", "decode")}
+    sort = dryrun.run_cell("olmoe-1b-7b", ShapeSpec("train_smoke", S_TRAIN, B, "train"), mesh=mesh,
                            device="cpu", verbose=False,
                            overrides={**_smoke_overrides("olmoe-1b-7b"), "moe_impl": "sort"})
     out["moe_sort_status"] = sort["status"]
@@ -387,36 +400,57 @@ def test_fake_state_bytes_per_rank_are_the_reference_shards(fake, arch, world):
 
 def _analytic_collectives(jcfg) -> dict:
     """One rank's link bytes of the sharded train step on (data, model) =
-    (2, 2), over the reference's ``state_specs``: each float32 weight
-    gathered whole (full − local bytes), each gradient reduce-scattered
-    over ``data`` into its placement (|full|·(n−1)/n; all-reduced,
-    2·|full|·(n−1)/n, where the spec leaves ``data`` out), the loss
-    all-reduced, and the gradient norm's local sums all-reduced over each
-    mesh dim that shards them, one stack per placement pattern."""
+    (2, 2), over the reference's ``state_specs``, ``train_microbatches``
+    microbatches of one row each.  Per microbatch: each float32 weight
+    that ``data`` shards is gathered over ``data`` (whole along ``data``,
+    the rank's block along ``model``: the full bytes over ``model``, less
+    the local), a layer's twice (its remat recomputes it), and its
+    gradient reduce-scattered back (the same bytes); a replicated weight's
+    gradient is all-reduced over ``data`` (2·|p|·(n−1)/n), and over
+    ``model`` too for the q and k norms (each rank normalizes its own
+    heads).  The activations' all-reduces over ``model``, (rows, S, d) in
+    the compute dtype: per layer two in the backward (the gradients
+    entering attention and the FFN) and two partial sums in the forward,
+    one more in the recompute (the checkpoint stops before the FFN's);
+    the cross-entropy's input gradient; the vocabulary-parallel lookup's
+    rows in float32 (the master table's); the cross-entropy's row max,
+    sum of exponentials and target logit per chunk, float32.  Then the
+    loss over ``data``, and the gradient norm's local sums over each mesh
+    dim that shards them, one stack per placement pattern."""
     axes, sizes = tuple(SMOKE_MESH), tuple(SMOKE_MESH.values())
     mesh = AbstractMesh(sizes, axes)
     state = jax.eval_shape(lambda: jts.init_state(jcfg, jax.random.PRNGKey(0),
                                                   joptimizer.OptConfig()))
     params, specs = state["params"], jts.state_specs(jcfg, state, mesh)["params"]
-    nd = SMOKE_MESH["data"]
+    nd, nm = SMOKE_MESH["data"], SMOKE_MESH["model"]
+    mb, L = jcfg.train_microbatches, jcfg.n_layers
     out = {"all-gather": 0.0, "reduce-scatter": 0.0, "all-reduce": 0.0}
     groups: dict = {}
+    spec_of = dict((tuple(str(k) for k in p), s) for p, s in jax.tree_util.tree_flatten_with_path(
+        specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0])
     for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
-        spec = jax.tree_util.tree_flatten_with_path(
-            specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]
-        spec = dict((tuple(str(k) for k in p), s) for p, s in spec)[tuple(str(k) for k in path)]
-        full = int(np.prod(leaf.shape)) * 4
+        spec = spec_of[tuple(str(k) for k in path)]
+        stacked = str(path[0]) == "['layers']"
+        layers = leaf.shape[0] if stacked else 1
+        one = int(np.prod(leaf.shape)) * 4 // layers
         used = {a for e in spec if e is not None for a in ((e,) if isinstance(e, str) else e)}
-        shards = int(np.prod([SMOKE_MESH[a] for a in used])) if used else 1
-        out["all-gather"] += full - full // shards
         if "data" in used:
-            out["reduce-scatter"] += full * (nd - 1) / nd
+            block = one // nm if "model" in used else one
+            link = block - block // nd
+            out["all-gather"] += mb * layers * (2 if stacked else 1) * link
+            out["reduce-scatter"] += mb * layers * link
         else:
-            out["all-reduce"] += 2 * full * (nd - 1) / nd
+            norm = str(path[-1]) in ("['q_norm']", "['k_norm']")
+            out["all-reduce"] += mb * layers * 2 * one * (nd - 1) / nd * (2 if norm else 1)
         if used:  # one gradient-norm sum per layer of the stacked leaf
-            layers = leaf.shape[0] if str(path[0]) == "['layers']" else 1
             key = tuple(a in used for a in axes)
             groups[key] = groups.get(key, 0) + layers
+    rows, d = B // nd // mb, jcfg.d_model
+    act = rows * S_TRAIN * d * jnp.dtype(jcfg.dtype).itemsize
+    chunks = S_TRAIN // jcfg.ce_chunk
+    ar = 2 * (nm - 1) / nm
+    out["all-reduce"] += mb * ar * ((5 * L + 1) * act + rows * S_TRAIN * d * 4
+                                    + chunks * 3 * rows * jcfg.ce_chunk * 4)
     out["all-reduce"] += 2 * 4 * (nd - 1) / nd  # the loss
     for key, count in groups.items():
         for a, sharded in zip(axes, key):
@@ -431,6 +465,16 @@ def test_smoke_step_collective_bytes_are_the_analytic_sum(fake):
     want = _analytic_collectives(jget_config("qwen3-0.6b", smoke=True))
     assert rec["coll_by_kind_bytes"] == want
     assert rec["roofline"]["coll_bytes"] == sum(want.values()) * rec["chips"]
+
+
+@pytest.mark.parametrize("kind", list(SMOKE_CELLS))
+def test_smoke_cells_hold_less_per_rank_than_whole_gathers(fake, kind):
+    """Per-layer gathers and tensor parallelism: each reduced cell on the
+    fake (2, 2) mesh holds less per rank than the whole-model gather did,
+    with no DTensor op."""
+    rec = fake["smoke_train"] if kind == "train" else fake["smoke_serve"][kind]
+    assert rec["status"] == "ok" and rec["dtensor_ops"] == 0
+    assert rec["per_chip_bytes"] < WHOLE_GATHER_BYTES[kind]
 
 
 def test_smoke_record_has_the_reference_keys(fake):

@@ -39,7 +39,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.data.pipeline", "repro_torch.ckpt.checkpoint",
             "repro_torch.launch.train", "repro_torch.launch.mesh",
             "repro_torch.launch.dryrun", "repro_torch.launch.opcost",
-            "repro_torch.launch.roofline", "repro_torch.launch.report"} <= set(mods)
+            "repro_torch.launch.roofline", "repro_torch.launch.report",
+            "repro_torch.models.parallel"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
