@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--log2-rows 25] [--compare-with TREE]
+    python3 chip_smoke.py --mesh-tp-only [PORT_SRC]
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
@@ -164,6 +165,29 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    (``MESH_TRAIN_4_WHOLE_GATHER_PEAK``) and its gathered bytes live at
    once (the gather's counter) within one layer plus ``embed`` or
    ``lm_head``, the (2, 2) checkpoint loaded onto (1, 1) bit for bit.
+   ``mesh_tp_4``: the same four ranks, the SSM, hybrid and enc-dec
+   families tensor-parallel over ``model``.  falcon-mamba-7b at its width
+   (d_model 4096, d_inner 8192, N 16, vocabulary 65,024), 2 layers,
+   float32, two steps of 4 × 1024 tokens, checked as ``mesh_train_4`` is
+   but for the parameter elements that one rank does not itself repeat
+   when its gradient sum is regrouped (``twin_compare``; at most one in
+   10⁴; each leaf's count printed, and the mesh against that regrouped
+   run over every element), and the first step's gradients (AdamW's first
+   moments then) over every element of every leaf; each rank's peak
+   below the same run's on the tree that gathered each layer whole
+   (``MESH_TP_TRAIN_LAYER_GATHER_PEAK``); zamba2-7b (one group of 6
+   Mamba-2 layers and the shared block) and seamless-m4t-medium (2 + 2
+   layers) at their widths, float32: a sharded prefill and 8 decode steps,
+   each rank's logits within 1e-5 in |Δ|₂/|w|₂ per step of a float64
+   one-rank run's on its rows (run in this process after the spawn; the
+   float32 one-rank run's own distance to it printed beside, and a
+   bfloat16 one-rank run as the control, which must land above 1e-5), the
+   cache back in ``cache_specs``' placements, no SSM state gathered over
+   ``model`` (``models.parallel.CACHE_GATHERS``).  ``--mesh-tp-only``
+   runs this part alone (four ranks, then its checks); ``--mesh-tp-only
+   PORT_SRC`` (another checkout's ``src``) only its training, on that
+   port, printing each rank's peak: so ``MESH_TP_TRAIN_LAYER_GATHER_PEAK``
+   was read on the parent tree's port.
 
 12. ``dryrun`` — the multi-pod dry-run (``repro_torch.launch.dryrun``,
    ``launch.opcost``, ``launch.roofline``) held to real steps.  Two spawned
@@ -172,7 +196,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    2 microbatches, full remat) and its decode step at batch 8 against a
    32,768-token cache (about 30 GB in bf16), while the script runs both for
    real on the (1, 1) NCCL mesh, each once under ``FlopCounterMode`` and
-   once timed: the traced matmul FLOPs must equal ``FlopCounterMode``'s,
+   once timed (the traces and the CLI runs below need no card time: they
+   start before the ``train`` phase and run beside it and ``mesh``): the
+   traced matmul FLOPs must equal ``FlopCounterMode``'s,
    the predicted peak above the step's start must lie within 10 % of
    ``max_memory_allocated``'s, and the measured step must take at least
    ``step_lower_bound_s`` (the ratio is printed).  Two more processes run
@@ -200,7 +226,9 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
+#: ``--mesh-tp-only PORT_SRC``: another checkout's port, for this process and its ranks
+PORT_SRC_ENV = "CHIP_SMOKE_PORT_SRC"
+sys.path.insert(0, os.environ.get(PORT_SRC_ENV) or str(ROOT / "src"))
 
 DEVICE = "cuda"
 SHARDS = 16  # P of the main path
@@ -1243,12 +1271,45 @@ def run_baseline(catalog, tenants, P):
     return outs, line
 
 
+def indexed_bsgf(db, q) -> set:
+    """``ref_engine.eval_bsgf(db, q)`` (set semantics, Section 3.1) with each
+    condition atom's conforming facts indexed by the values of its
+    variables that the guard binds: one set lookup per guard fact and atom
+    where ``ref_engine`` scans the atom's relation.  A fact agrees with a
+    guard binding exactly when its values of those variables equal the
+    binding's (a conforming fact holds one value per variable), so the
+    lookup answers ``atom_holds``."""
+    from repro_torch.core.algebra import cond_atoms, eval_cond
+    from repro_torch.core.ref_engine import fact_conforms
+
+    bound = set(q.guard.vars)
+    index = {}
+    for a in cond_atoms(q.cond):
+        keys = [v for v in a.vars if v in bound]
+        pos = [a.terms.index(v) for v in keys]
+        index[a] = (keys, {tuple(f[i] for i in pos) for f in db.get(a.rel, ())
+                           if fact_conforms(f, a)})
+    out = set()
+    for fact in db.get(q.guard.rel, ()):
+        if not fact_conforms(fact, q.guard):
+            continue
+        binding = {t: v for v, t in zip(fact, q.guard.terms) if isinstance(t, str)}
+        if q.cond is not None and not eval_cond(q.cond, {
+                a: tuple(binding[v] for v in keys) in facts
+                for a, (keys, facts) in index.items()}):
+            continue
+        out.add(tuple(binding[v] for v in q.out_vars))
+    return out
+
+
 def service_oracle(P) -> None:
-    """One tick at 2**12 rows on the card, set-equal to ``ref_engine``;
-    its line gives the seconds of the tick and of the oracle apart."""
+    """One tick at 2**12 rows on the card, set-equal to the indexed oracle
+    (:func:`indexed_bsgf`, held to ``ref_engine`` by
+    ``tests/test_torch_service.py``); its line gives the seconds of the
+    tick and of the oracle apart."""
     import torch
 
-    from repro_torch.core import queries, ref_engine
+    from repro_torch.core import queries
     from repro_torch.service import SGFService, catalog_from_numpy
 
     t_start = time.perf_counter()
@@ -1267,14 +1328,16 @@ def service_oracle(P) -> None:
     got = [req.outputs["Z0"].to_set() for req in reqs]
     t0 = time.perf_counter()
     setdb = {k: {tuple(map(int, r)) for r in v} for k, v in db_np.items()}
-    want = [ref_engine.eval_bsgf(setdb, qs[0]) for qs in tenants]
+    want = [indexed_bsgf(setdb, qs[0]) for qs in tenants]
     oracle_s = time.perf_counter() - t0
     for req, g, w in zip(reqs, got, want):
         if g != w:
-            raise AssertionError(f"service oracle: tenant {req.tenant} disagrees with ref_engine")
+            raise AssertionError(f"service oracle: tenant {req.tenant} disagrees with the "
+                                 "indexed oracle")
     emit({"phase": "service", "tick": "oracle", "rows_per_relation": 2**12, "P": P,
           "output_rows": [len(g) for g in got], "set_equal": True, "tick_s": tick_s,
-          "ref_engine_s": oracle_s, "seconds": time.perf_counter() - t_start})
+          "oracle": "indexed_bsgf", "oracle_s": oracle_s,
+          "seconds": time.perf_counter() - t_start})
 
 
 def phase_service(log2_rows, P, seed) -> list:
@@ -2617,15 +2680,39 @@ def phase_train(seed: int, spec: dict) -> list:
 #: the mesh phase: (a) the A3 MSJ stages at 2**msj_log2_rows rows, P =
 #: msj_P gloo ranks on the one card, then P = 1 over NCCL; (b) qwen3-0.6b
 #: whole on the (1, 1) NCCL mesh with the train phase's batch; (c) four
-#: gloo ranks on (2, 2), qwen3-0.6b at its width with four_layers layers
+#: gloo ranks on (2, 2), qwen3-0.6b at its width with four_layers layers;
+#: (d) the same four ranks, the SSM, hybrid and enc-dec families
+#: tensor-parallel (MESH_TP_TRAIN, MESH_TP_SERVE)
 MESH = {"msj_log2_rows": 24, "msj_P": 4, "train_steps": 2,
         "four_layers": 2, "four_batch": 4, "four_seq": 1024, "four_steps": 2,
-        "ranks_timeout_s": 400, "collective_timeout_s": 300}  # the ranks took 62.5 s
+        "ranks_timeout_s": 500, "collective_timeout_s": 300}  # the ranks took 62.5 s
 MESH_TOL = 1e-5  # relative, 4 gloo ranks to 1: losses, grad norms; parameters per leaf in |Δ|₂
 #: mesh_train_4's peak per rank when every weight was gathered whole (this
 #: phase on an NVIDIA H100 80GB HBM3 at 700 W, before per-layer gathers and
 #: tensor parallelism): each rank's peak must stay below it
 MESH_TRAIN_4_WHOLE_GATHER_PEAK = 5_006_349_824
+#: (d) training: falcon-mamba-7b at its published width (d_model 4096,
+#: d_inner 8192, N 16, vocabulary 65,024), 2 of its 64 layers, float32.
+#: The parameters are held over the elements that one rank repeats
+#: (:func:`twin_compare`): the zero-initialized ``conv_b`` is small after
+#: two steps (about 2·lr·√n in |·|₂), and one rank alone moves it by
+#: 1.06e-5 in |Δ|₂/|p|₂ between 1 and 2 microbatches at SMOKE width
+MESH_TP_TRAIN = {"arch": "falcon-mamba-7b", "layers": 2, "batch": 4, "seq": 1024, "steps": 2}
+#: its peak per rank when each layer was gathered whole over ``model`` and
+#: every rank scanned all of d_inner (``--mesh-tp-only PORT_SRC`` on the
+#: tree before these families computed tensor-parallel; NVIDIA H100 80GB
+#: HBM3, 700 W): each rank's peak must stay below it
+MESH_TP_TRAIN_LAYER_GATHER_PEAK = 12_660_265_984
+#: (d) serving at each family's width, float32: a sharded prefill of
+#: ``batch`` prompts of ``prompt`` tokens (seamless: and ``frames`` stub
+#: frames), then ``decode`` steps of given tokens
+MESH_TP_SERVE = [
+    {"arch": "zamba2-7b", "overrides": {"n_layers": 6}, "batch": 4, "prompt": 512,
+     "decode": 8},  # one group of 6 Mamba-2 layers and the shared block, no tail
+    {"arch": "seamless-m4t-medium", "overrides": {"n_layers": 4, "enc_layers": 2,
+                                                  "dec_layers": 2},
+     "batch": 4, "prompt": 256, "frames": 256, "decode": 8},
+]
 SHARDED_TOL = 1e-6  # relative |Δ|₂ per leaf, (1, 1) mesh against no mesh, if not bit-identical
 
 
@@ -2738,7 +2825,7 @@ def mesh_msj_rank(rank, tmp, cap, P) -> dict:
 
 
 def mesh_rank(rank, port, tmp, cap, P, seed):
-    """One of the P gloo ranks: part (a), then part (c)."""
+    """One of the P gloo ranks: part (a), then parts (c) and (d)."""
     import torch
     import torch.distributed as dist
 
@@ -2746,10 +2833,76 @@ def mesh_rank(rank, port, tmp, cap, P, seed):
     out = {"msj": mesh_msj_rank(rank, tmp, cap, P)}
     gc.collect()
     torch.cuda.empty_cache()
-    out["train_4"] = mesh_train4_rank(rank, tmp, seed)
+    out["train_4"] = mesh_train4_rank(rank, tmp, seed, dict(
+        arch=TRAIN["arch"], layers=MESH["four_layers"], batch=MESH["four_batch"],
+        seq=MESH["four_seq"], steps=MESH["four_steps"]), checkpoints=True)
+    out.update(mesh_tp_parts(rank, tmp, seed, serve=True))
     Path(tmp, f"rank{rank}.json").write_text(json.dumps(out))
     dist.barrier()
     dist.destroy_process_group()
+
+
+def mesh_tp_parts(rank, tmp, seed, serve: bool) -> dict:
+    """Part (d) on one of the four ranks: its training, and with ``serve``
+    its serving."""
+    import torch
+
+    out = {"tp_serve": []}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["tp_train"] = mesh_train4_rank(rank, tmp, seed, MESH_TP_TRAIN, checkpoints=False)
+    for spec in MESH_TP_SERVE if serve else ():
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["tp_serve"].append(mesh_tp_serve_rank(rank, tmp, seed, spec))
+    return out
+
+
+def mesh_tp_rank(rank, port, tmp, seed, serve: bool) -> None:
+    """One of four gloo ranks of ``--mesh-tp-only``: part (d) alone."""
+    import torch.distributed as dist
+
+    mesh_rank_setup(rank, port, 4)
+    out = mesh_tp_parts(rank, tmp, seed, serve)
+    Path(tmp, f"rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_tp_only(seed: int, port_src: str | None) -> int:
+    """``--mesh-tp-only``: part (d) of the mesh phase alone, its line and
+    checks; with ``port_src`` (another checkout's ``src``) only its
+    training, on that port, and each rank's peak printed (how
+    ``MESH_TP_TRAIN_LAYER_GATHER_PEAK`` is read on an older tree)."""
+    import shutil
+    import tempfile
+
+    if port_src:
+        os.environ[PORT_SRC_ENV] = str(Path(port_src).resolve())
+        sys.path.insert(0, os.environ[PORT_SRC_ENV])
+    import repro_torch
+
+    t0 = time.perf_counter()
+    port = str(Path(repro_torch.__file__).resolve().parent)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_tp_")
+    try:
+        spawn_s = spawn_ranks(mesh_tp_rank, (free_port(), tmp, seed, not port_src), 4)
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(4)]
+        four = [r["tp_train"] for r in ranks]
+        if port_src:
+            emit({"phase": "mesh", "step": "mesh_tp_4_train_peak", "card": nvidia_smi(),
+                  "port": port, "peak_mem_bytes": [r["peak_mem_bytes"] for r in four],
+                  "losses": four[0]["losses"], "one_rank_losses": four[0]["one_rank_losses"],
+                  "step_s": [r["step_s"] for r in four], "spawn_s": spawn_s})
+            return 0
+        serve = [mesh_tp_serve_check(seed, spec, [r["tp_serve"][i] for r in ranks], tmp)
+                 for i, spec in enumerate(MESH_TP_SERVE)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    mesh_tp_line(four, [[r["tp_serve"][i] for r in ranks] for i in range(len(serve))], serve)
+    emit({"phase": "mesh", "step": "done", "port": port, "spawn_s": spawn_s,
+          "seconds": time.perf_counter() - t0})
+    return 0
 
 
 def msj_reference(seed, tmp):
@@ -2937,6 +3090,62 @@ def mesh_train(seed, mesh):
     return line
 
 
+def twin_compare(cfg, seed, opt_cfg, batches, lr, full, keys) -> dict:
+    """The one-rank steps again with their gradient summed in two
+    microbatches (the same function, the sum regrouped as the mesh's two
+    data shards group it), on this rank: the parameter elements whose
+    values this regrouping alone moves by more than the leaf's share of
+    ``MESH_TOL`` (|Δ| > MESH_TOL · |p|₂ / √n) are those one rank does not
+    itself repeat to ``MESH_TOL``: AdamW divides each gradient element by
+    its own magnitude plus eps, so at an element whose gradient is near
+    eps it magnifies the sum's rounding, or where a step's gradient nearly
+    cancels the first moment.  Returns the sharded parameters' |Δ|₂/|p|₂
+    per leaf against the one-rank run over every other element, how many
+    were left out of each leaf, and the sharded parameters against the
+    twin over every element."""
+    import torch
+
+    from repro_torch.train import train_step as ts
+
+    twin = ts.init_state(cfg, seed, opt_cfg, device=DEVICE)
+    step = ts.make_train_step(cfg, opt_cfg, microbatches=2)
+    for batch in batches:
+        twin, _ = step(twin, batch)
+    tw = {f"params.{n}": p.detach() for n, p in twin["params"].named_parameters()}
+    del twin
+    out, left = {}, {}
+    for k in keys:
+        keep = (lr[k] - tw[k]).abs() <= MESH_TOL * torch.linalg.vector_norm(lr[k]) \
+            / math.sqrt(lr[k].numel())
+        left[k] = int((~keep).sum())
+        out[k] = rel_l2(lr[k][keep], full[k][keep])
+    return {"param_rel_l2_repeatable": out, "twin_param_rel_l2_max": max(
+        rel_l2(lr[k], tw[k]) for k in keys),
+        "mesh_twin_param_rel_l2": {k: rel_l2(tw[k], full[k]) for k in keys},
+        "not_repeatable_by_leaf": {k: [n, lr[k].numel()] for k, n in left.items() if n},
+        "elements_not_repeatable": sum(left.values()),
+        "elements": sum(lr[k].numel() for k in keys)}
+
+
+def first_moments(state, keep: bool) -> dict | None:
+    """AdamW's first moments of ``state`` after its first step, each leaf
+    gathered (a collective over the mesh), on the host where ``keep``: the
+    first step's clipped gradients times ``1 - b1``, taken at the initial
+    parameters, so the sharded and the one-rank runs differ there only in
+    the order of their sums (the parameters after AdamW do not: see
+    :func:`twin_compare`)."""
+    from repro_torch.launch.mesh import full_value
+
+    out = {}
+    for k, v in state_leaves(state).items():
+        if k.startswith("opt.mu."):
+            full = full_value(v)
+            if keep:  # a copy: a replicated leaf's full value is its live shard
+                out["params." + k[len("opt.mu."):]] = full.to("cpu", copy=True)
+            del full
+    return out if keep else None
+
+
 def local_state_bytes(state) -> int:
     from repro_torch.launch.mesh import local
 
@@ -2961,10 +3170,13 @@ def spec_state_bytes(cfg, state, mesh) -> int:
     return total
 
 
-def mesh_train4_rank(rank, tmp, seed) -> dict:
-    """Part (c), one rank of four on (2, 2), under deterministic algorithms
-    (so the run repeats): the steps; rank 0 then runs the same steps with
-    no mesh and loads the (2, 2) checkpoint onto (1, 1)."""
+def mesh_train4_rank(rank, tmp, seed, spec, checkpoints: bool) -> dict:
+    """Parts (c) and (d)'s training, one rank of four on (2, 2), under
+    deterministic algorithms (so the run repeats): ``spec``'s steps of
+    ``spec["arch"]`` at its width, ``spec["layers"]`` layers, float32, one
+    microbatch; rank 0 then runs the same steps with no mesh and, with
+    ``checkpoints``, loads the (2, 2) checkpoint onto (1, 1), else runs
+    :func:`twin_compare`."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
@@ -2980,14 +3192,14 @@ def mesh_train4_rank(rank, tmp, seed) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.use_deterministic_algorithms(True, warn_only=True)
-    cfg = get_config(TRAIN["arch"], n_layers=MESH["four_layers"], dtype="float32")
-    steps = MESH["four_steps"]
+    cfg = get_config(spec["arch"], n_layers=spec["layers"], dtype="float32")
+    steps = spec["steps"]
     opt_cfg = optimizer.OptConfig(lr=3e-4, warmup_steps=1, total_steps=steps)
     kind = torch.device(DEVICE).type
     m22 = init_device_mesh(kind, (2, 2), mesh_dim_names=mesh_lib.AXES)
     m11 = DeviceMesh(kind, [[0]], mesh_dim_names=mesh_lib.AXES)
     step_fn = ts.make_train_step(cfg, opt_cfg)
-    batches = [synthetic.token_batch(cfg, "train", MESH["four_batch"], MESH["four_seq"], i,
+    batches = [synthetic.token_batch(cfg, "train", spec["batch"], spec["seq"], i,
                                      seed=seed, device=DEVICE) for i in range(steps)]
     state = ts.init_state(cfg, seed, opt_cfg, device=DEVICE)
     state = elastic.reshard_state(state, ts.state_specs(cfg, state, m22), m22)
@@ -2996,44 +3208,64 @@ def mesh_train4_rank(rank, tmp, seed) -> dict:
     state_bytes = local_state_bytes(state)
     spec_bytes = spec_state_bytes(cfg, state, m22)
     allocated = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
     parallel.reset_stats()
-    losses, norms, walls = [], [], []
-    for batch in batches:
+    losses, norms, walls, peaks, mu1 = [], [], [], [], None
+    for i, batch in enumerate(batches):
         dist.barrier()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state, m = step_fn(state, batch)
         losses.append(float(m["loss"]))
         walls.append(time.perf_counter() - t0)
         norms.append(float(m["grad_norm"]))
-    peak = torch.cuda.max_memory_allocated()
+        peaks.append(torch.cuda.max_memory_allocated())
+        if i == 0 and not checkpoints:
+            mu1 = first_moments(state, keep=rank == 0)
+    peak = max(peaks)
     gathered = parallel.STATS["params_peak"]
     layer_bytes = max(sum(p.numel() * p.element_size() for p in lp.parameters())
                       for lp in state["params"].layers)
     ends_bytes = max(w.numel() * w.element_size() for w in (state["params"].embed,
                                                              state["params"].lm_head))
-    full = {k: mesh_lib.full_value(v) for k, v in state_leaves(state).items()}
-    ckpt = str(Path(tmp) / "ckpt")
-    t0 = time.perf_counter()
-    checkpoint.save(ckpt, steps, state, mesh=m22)
-    save_s = time.perf_counter() - t0
+    # every leaf for the checkpoint's check, else the parameters (a collective)
+    full = {k: mesh_lib.full_value(v) for k, v in state_leaves(state).items()
+            if checkpoints or k.startswith("params.")}
     out = {"rank": rank, "coordinate": m22.get_coordinate(), "losses": losses,
            "grad_norms": norms, "step_s": walls,
            "state_bytes": state_bytes, "spec_bytes": spec_bytes,
            "allocated_after_sharding": allocated, "peak_mem_bytes": peak,
            "gathered_peak_bytes": gathered,
-           "one_layer_plus_ends_bytes": layer_bytes + ends_bytes, "save_s": save_s}
+           "one_layer_plus_ends_bytes": layer_bytes + ends_bytes}
+    if checkpoints:
+        ckpt = str(Path(tmp) / "ckpt")
+        t0 = time.perf_counter()
+        checkpoint.save(ckpt, steps, state, mesh=m22)
+        out["save_s"] = time.perf_counter() - t0
+    # the other ranks free the card and wait while rank 0 runs one rank's steps
+    if rank != 0 or not checkpoints:
+        del state
+    if rank != 0:
+        del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
     if rank == 0:
         ref = ts.init_state(cfg, seed, opt_cfg, device=DEVICE)
         init = {f"params.{n}": p.detach().clone() for n, p in ref["params"].named_parameters()}
         ref_losses, ref_norms = [], []
-        for batch in batches:
+        for i, batch in enumerate(batches):
             ref, m = step_fn(ref, batch)
             ref_losses.append(float(m["loss"]))
             ref_norms.append(float(m["grad_norm"]))
+            if i == 0 and mu1 is not None:
+                # the first step's gradients over every element of every leaf
+                out["grad1_rel_l2"] = {
+                    f"params.{n}": rel_l2(p, mu1.pop(f"params.{n}").to(DEVICE))
+                    for n, p in ref["opt"]["mu"].named_parameters()}
         lr = {k: v.detach() for k, v in state_leaves(ref).items()}
         keys = [k for k in lr if k.startswith("params.")]
+        del ref
         out["one_rank_losses"] = ref_losses
         out["one_rank_grad_norms"] = ref_norms
         out["param_rel_l2"] = {k: rel_l2(lr[k], full[k]) for k in keys}
@@ -3042,7 +3274,10 @@ def mesh_train4_rank(rank, tmp, seed) -> dict:
         # parameter check must refuse
         control = [rel_l2(lr[k], init[k]) for k in keys]
         out["control_param_rel_l2"] = {"max": max(control), "min": min(control)}
-        del ref, lr, init
+        if not checkpoints:
+            out.update(twin_compare(cfg, seed, opt_cfg, batches, lr, full, keys))
+        del lr, init
+    if rank == 0 and checkpoints:
         t0 = time.perf_counter()
         loaded = checkpoint.load(ckpt, steps, state, mesh=m11,
                                  specs=ts.state_specs(cfg, state, m11))
@@ -3050,18 +3285,166 @@ def mesh_train4_rank(rank, tmp, seed) -> dict:
         ll = state_leaves(loaded)
         out["load_11_bit_identical"] = ll.keys() == full.keys() and all(
             torch.equal(mesh_lib.local(ll[k]), full[k]) for k in full)
-        del loaded, ll
+        del loaded, ll, state
+    if rank == 0:
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
     torch.use_deterministic_algorithms(False)
     return out
+
+
+def serve_inputs(cfg, spec, seed, device):
+    """``spec``'s prompt batch (tokens; and stub frames for the enc-dec
+    family) and its decode tokens, drawn from ``seed``."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(seed + 7)
+    B = spec["batch"]
+    tokens = torch.randint(0, cfg.vocab, (B, spec["prompt"] + spec["decode"]), generator=gen,
+                           dtype=torch.int32)
+    batch = {"tokens": tokens[:, :spec["prompt"]].to(device)}
+    if "frames" in spec:
+        batch["embeds"] = (0.1 * torch.randn((B, spec["frames"], cfg.d_model),
+                                             generator=gen)).to(device)
+    return batch, tokens[:, spec["prompt"]:].to(device)
+
+
+def serve_steps(cfg, params, batch, toks, max_len):
+    """Prefill, then a decode step per column of ``toks``: (the cache, the
+    logits of each step stacked (steps + 1, rows, V), the walls)."""
+    import torch
+
+    from repro_torch.models import model
+
+    walls, logits = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, lg = model.prefill(cfg, params, batch, max_len)
+    for j in range(toks.shape[1] + 1):
+        logits.append(getattr(lg, "to_local", lambda: lg)())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if j == toks.shape[1]:
+            break
+        t0 = time.perf_counter()
+        cache, lg = model.decode_step(cfg, params, cache, toks[:, j:j + 1])
+    return cache, torch.stack(logits), walls
+
+
+def mesh_tp_serve_rank(rank, tmp, seed, spec) -> dict:
+    """Part (d)'s serving, one rank of four on (2, 2): ``spec``'s model at
+    its width in float32 (TF32 off), placed by ``partition_specs``; a
+    sharded prefill and decode steps on the rank's rows, its logits
+    written to ``tmp`` for the one-rank run; the cache's placements against
+    ``cache_specs``' and the cache leaves gathered over ``model``."""
+    import torch
+    from types import SimpleNamespace
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.ft import elastic
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model, parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(spec["arch"], dtype="float32", **spec["overrides"])
+    m22 = init_device_mesh(torch.device(DEVICE).type, (2, 2), mesh_dim_names=mesh_lib.AXES)
+    params = model.init_params(cfg, seed, device=DEVICE)
+    params = elastic.reshard_state({"params": params}, {"params": model.partition_specs(
+        cfg, params, m22)}, m22)["params"]
+    batch, toks = serve_inputs(cfg, spec, seed, DEVICE)
+    batch = elastic.reshard_state(batch, model.batch_specs(cfg, batch, m22), m22)
+    toks = elastic.reshard_state({"t": toks}, {"t": model.batch_specs(cfg, {"t": toks}, m22)[
+        "t"]}, m22)["t"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    parallel.reset_stats()
+    with torch.no_grad():
+        cache, logits, walls = serve_steps(cfg, params, batch, toks,
+                                           spec["prompt"] + spec["decode"])
+    peak = torch.cuda.max_memory_allocated()
+    gathers = dict(parallel.CACHE_GATHERS)
+    specs = model.cache_specs(cfg, {k: SimpleNamespace(shape=v.shape)
+                                    for k, v in cache.items()}, m22)
+    placed = all(tuple(v.placements) == tuple(model.placements(specs[k], m22))
+                 for k, v in cache.items())
+    torch.save(logits.cpu(), Path(tmp) / f"tp_{cfg.name}_{rank}.pt")
+    del params, cache, logits
+    return {"rank": rank, "arch": spec["arch"], "coordinate": m22.get_coordinate(),
+            "prefill_s": walls[0], "decode_s": walls[1:], "peak_mem_bytes": peak,
+            "gathered_peak_bytes": {k: parallel.STATS[f"{k}_peak"] for k in ("params", "cache")},
+            "cache_gathers": gathers, "cache_in_cache_specs": placed}
+
+
+def mesh_tp_serve_check(seed, spec, ranks, tmp) -> dict:
+    """Part (d)'s serving, the one-rank runs in this process: the same
+    model, prompts and decode tokens with no mesh, all rows at once, in
+    float64 (the float32 weights cast; the reference each rank's float32
+    logits are held to on its rows), in float32 (the one-rank run's own
+    distance to it, the floor) and in bfloat16 (the control, which the
+    check must refuse)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+
+    def rel(want, got):  # per step: max |Δ| / max |want|
+        return [float((g - w).abs().max() / w.abs().max()) for w, g in zip(want, got)]
+
+    def rel2(want, got):  # per step: |Δ|₂ / |want|₂
+        return [rel_l2(w, g) for w, g in zip(want, got)]
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = spec["batch"] // 2
+    try:
+        params = model.init_params(get_config(spec["arch"], dtype="float32", **spec["overrides"]),
+                                   seed, device=DEVICE)
+        batch, toks = serve_inputs(get_config(spec["arch"], **spec["overrides"]), spec, seed,
+                                   DEVICE)
+        runs, walls = {}, {}
+        with torch.no_grad():
+            for name in ("float32", "float64", "bfloat16"):  # the weights cast in place
+                dt = getattr(torch, name)
+                cfg = get_config(spec["arch"], dtype=name, **spec["overrides"])
+                params.to(dt)
+                b = {k: v.to(dt) if v.is_floating_point() else v for k, v in batch.items()}
+                _, runs[name], walls[name] = serve_steps(cfg, params, b, toks,
+                                                         spec["prompt"] + spec["decode"])
+        del params
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    want = runs["float64"]
+    steps, steps_max = [], []
+    for r in ranks:
+        got = torch.load(Path(tmp) / f"tp_{cfg.name}_{r['rank']}.pt").to(DEVICE)
+        own = want[:, r["coordinate"][0] * rows:(r["coordinate"][0] + 1) * rows]
+        steps.append(rel2(own, got))
+        steps_max.append(rel(own, got))
+    torch.cuda.empty_cache()
+    return {"arch": spec["arch"], "config": {k: getattr(cfg, k) for k in (
+        "n_layers", "d_model", "vocab")}, "reference": "float64",
+        "one_rank_prefill_s": walls["float32"][0], "one_rank_decode_s": walls["float32"][1:],
+        "logit_rel_l2": [max(e) for e in steps], "logit_rel_l2_by_step": steps,
+        "logit_max_rel_err": [max(e) for e in steps_max],
+        "one_rank_f32_rel_l2": max(rel2(want, runs["float32"])),
+        "one_rank_f32_max_rel_err": max(rel(want, runs["float32"])),
+        "control_bf16_rel_l2": max(rel2(want, runs["bfloat16"]))}
 
 
 def phase_mesh(seed: int) -> list:
     """The multi-card layer.  The parent writes part (a)'s ``SimComm``
     reference, runs part (a) at P = 1 and part (b) over its one-rank NCCL
     group and tears the group down; then one spawn of four gloo ranks runs
-    part (a) and part (c).  Lines: ``mesh_train``, ``mesh_msj``,
-    ``mesh_train_4``, ``done``; returns ``mesh_msj`` first (its launches
-    count on the kernels line)."""
+    parts (a), (c) and (d), and the parent runs part (d)'s one-rank
+    serving.  Lines: ``mesh_train``, ``mesh_msj``, ``mesh_train_4``,
+    ``mesh_tp_4``, ``done``; returns ``mesh_msj`` first (its launches count
+    on the kernels line)."""
     import shutil
     import tempfile
 
@@ -3088,6 +3471,8 @@ def phase_mesh(seed: int) -> list:
         torch.cuda.empty_cache()
         spawn_s = spawn_ranks(mesh_rank, (free_port(), tmp, cap, P, seed), P)
         ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(P)]
+        serve = [mesh_tp_serve_check(seed, spec, [r["tp_serve"][i] for r in ranks], tmp)
+                 for i, spec in enumerate(MESH_TP_SERVE)]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3136,9 +3521,74 @@ def phase_mesh(seed: int) -> list:
             and r0["control_param_rel_l2"]["max"] > MESH_TOL
             and r0["load_11_bit_identical"]):
         raise AssertionError(f"mesh_train_4 failed: {four_line}")
+    tp_line = mesh_tp_line([r["tp_train"] for r in ranks],
+                           [[r["tp_serve"][i] for r in ranks] for i in range(len(serve))],
+                           serve)
     done = {"phase": "mesh", "step": "done", "seconds": time.perf_counter() - t_phase}
     emit(done)
-    return [msj_line, train_line, four_line, done]
+    return [msj_line, train_line, four_line, tp_line, done]
+
+
+def mesh_tp_line(four, serve_ranks, serve) -> dict:
+    """Part (d)'s line and its checks, laid out as ``mesh_train_4``'s:
+    training within ``MESH_TOL`` of one rank (the control above it; the
+    parameters over the elements one rank repeats, at most one in 10⁴ left
+    out, each leaf's count printed; the first step's gradients over every
+    element of every leaf), each rank's peak below the layer-gathering
+    tree's; serving within ``MESH_TOL`` of the
+    float64 one-rank run on each rank's rows (|Δ|₂/|w|₂ per step, as the
+    parameters; the float32 one-rank run's own distance printed beside),
+    the bfloat16 control above it, the cache in ``cache_specs``'
+    placements, no SSM state gathered over ``model``."""
+    r0 = four[0]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], r0["one_rank_losses"]))
+    norm_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(r0["grad_norms"], r0["one_rank_grad_norms"]))
+    for entry, ranks in zip(serve, serve_ranks):
+        entry.update({k: [r[k] for r in ranks] for k in (
+            "prefill_s", "decode_s", "peak_mem_bytes", "gathered_peak_bytes", "cache_gathers",
+            "cache_in_cache_specs")})
+    line = {"phase": "mesh", "step": "mesh_tp_4", "card": nvidia_smi(),
+            "mesh": {"data": 2, "model": 2}, "backend": "gloo", "dtype": "float32",
+            "tf32": False, "tensor_parallel": True,
+            "train": {**MESH_TP_TRAIN, "deterministic_algorithms": True, "ranks": four,
+                      "loss_rel_err": loss_err, "grad_norm_rel_err": norm_err,
+                      "param_rel_l2_max": max(r0["param_rel_l2"].values()),
+                      "param_rel_l2_repeatable_max": max(
+                          r0["param_rel_l2_repeatable"].values()),
+                      "twin_param_rel_l2_max": r0["twin_param_rel_l2_max"],
+                      "mesh_twin_param_rel_l2_max": max(
+                          r0["mesh_twin_param_rel_l2"].values()),
+                      "elements_not_repeatable": r0["elements_not_repeatable"],
+                      "not_repeatable_by_leaf": r0["not_repeatable_by_leaf"],
+                      "elements": r0["elements"],
+                      "grad1_rel_l2_max": max(r0["grad1_rel_l2"].values()),
+                      "grad1_rel_l2": r0["grad1_rel_l2"],
+                      "control_param_rel_l2": r0["control_param_rel_l2"], "tol": MESH_TOL,
+                      "peak_mem_bytes": [r["peak_mem_bytes"] for r in four],
+                      "layer_gather_peak_bytes": MESH_TP_TRAIN_LAYER_GATHER_PEAK,
+                      "gathered_peak_bytes": [r["gathered_peak_bytes"] for r in four],
+                      "one_layer_plus_ends_bytes": r0["one_layer_plus_ends_bytes"]},
+            "serve": serve, "tol": MESH_TOL}
+    emit(line)
+    if not (all(r["state_bytes"] == r["spec_bytes"] for r in four)
+            and all(r["peak_mem_bytes"] < MESH_TP_TRAIN_LAYER_GATHER_PEAK for r in four)
+            and all(0 < r["gathered_peak_bytes"] <= r["one_layer_plus_ends_bytes"]
+                    for r in four)
+            and all(r["losses"] == r0["losses"] for r in four)
+            and all(r["grad_norms"] == r0["grad_norms"] for r in four)
+            and loss_err <= MESH_TOL and norm_err <= MESH_TOL
+            and line["train"]["param_rel_l2_repeatable_max"] <= MESH_TOL
+            and r0["elements_not_repeatable"] <= 1e-4 * r0["elements"]
+            and max(r0["grad1_rel_l2"].values()) <= MESH_TOL
+            and r0["control_param_rel_l2"]["max"] > MESH_TOL
+            and all(e <= MESH_TOL for s in serve for e in s["logit_rel_l2"])
+            and all(s["control_bf16_rel_l2"] > MESH_TOL for s in serve)
+            and all(all(s["cache_in_cache_specs"]) for s in serve)
+            and all(not any(k.startswith("ssm") for k in g) for s in serve
+                    for g in s["cache_gathers"])):
+        raise AssertionError(f"mesh_tp_4 failed: {line}")
+    return line
 
 
 # --------------------------------------------------------------------------
@@ -3276,17 +3726,63 @@ def dryrun_real(seed: int, mesh) -> dict:
     return out
 
 
-def phase_dryrun(seed: int) -> list:
+def start_dryrun_traces() -> dict:
+    """The ``dryrun`` phase's traces, each in a process of its own, all
+    started together: two spawned traces on a fake (1, 1) mesh and the CLI
+    on the production meshes.  They run on fake tensors and need no card
+    time, so they are started before the ``train`` phase and run beside it
+    and ``mesh``; :func:`phase_dryrun` collects them, :func:`stop_dryrun`
+    ends what is left."""
+    import multiprocessing
+    import tempfile
+
+    import torch
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    ctx = multiprocessing.get_context("spawn")
+    kind_dev = torch.device(DEVICE).type
+    started = {"tmp": tmp, "t0": time.perf_counter(), "cli": {}, "children": {
+        k: ctx.Process(target=dryrun_child, args=(k, str(Path(tmp, f"{k}.json")), kind_dev))
+        for k in ("train", "decode")}}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    for p in started["children"].values():
+        p.start()
+    for mp in (False, True):
+        desc = "2x16x16" if mp else "16x16"
+        started["cli"][desc] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN["arch"],
+             "--shape", DRYRUN["cli_shape"], "--device", kind_dev,
+             "--out", str(Path(tmp, f"cli_{desc}.json"))] + (["--multi-pod"] if mp else []),
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return started
+
+
+def stop_dryrun(started: dict) -> None:
+    """Ends every process of :func:`start_dryrun_traces` still running and
+    removes their directory."""
+    import shutil
+
+    for p in started["children"].values():
+        if p.is_alive():
+            p.kill()
+            p.join()
+    for proc in started["cli"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    shutil.rmtree(started["tmp"], ignore_errors=True)
+
+
+def phase_dryrun(seed: int, started: dict) -> list:
     """The dry-run (``repro_torch.launch.dryrun``) held to real steps on
     the card: the traced matmul FLOPs equal ``FlopCounterMode``'s, the
     predicted peak is within ``PEAK_TOL`` of the measured one, and the
     measured step takes at least the roofline's lower bound; then the
-    CLI on the production meshes.  Every trace runs in a process of its
-    own, all started together at the phase's start."""
-    import multiprocessing
-    import shutil
-    import tempfile
-
+    CLI on the production meshes.  The traces (``started``, from
+    :func:`start_dryrun_traces`) are collected after the real steps;
+    ``trace_s`` is each trace's own clock, ``traces_wall_s`` the time
+    from their start to their end here.  The caller ends them with
+    :func:`stop_dryrun`."""
     import torch
     import torch.distributed as dist
 
@@ -3296,48 +3792,23 @@ def phase_dryrun(seed: int) -> list:
     gc.collect()
     torch.cuda.empty_cache()
     reset_counts()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
-    ctx = multiprocessing.get_context("spawn")
-    kind_dev = torch.device(DEVICE).type
-    children = {k: ctx.Process(target=dryrun_child,
-                               args=(k, str(Path(tmp, f"{k}.json")), kind_dev))
-                for k in ("train", "decode")}
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    cli = {}
-    try:
-        for p in children.values():
-            p.start()
-        for mp in (False, True):
-            desc = "2x16x16" if mp else "16x16"
-            cli[desc] = subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN["arch"],
-                 "--shape", DRYRUN["cli_shape"], "--device", kind_dev,
-                 "--out", str(Path(tmp, f"cli_{desc}.json"))] + (["--multi-pod"] if mp else []),
-                cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        mesh = make_host_mesh(DEVICE)
-        real = dryrun_real(seed, mesh)
-        dist.destroy_process_group()
-        deadline = t_phase + DRYRUN["timeout_s"]
-        for k, p in children.items():
-            p.join(max(deadline - time.perf_counter(), 1))
-            if p.exitcode != 0:
-                raise AssertionError(f"dryrun: the {k} trace ended with {p.exitcode}")
-        traced = {k: json.loads(Path(tmp, f"{k}.json").read_text()) for k in children}
-        records = {}
-        for desc, proc in cli.items():
-            _, err = proc.communicate(timeout=max(deadline - time.perf_counter(), 1))
-            if proc.returncode != 0:
-                raise AssertionError(f"dryrun: the CLI on {desc} failed: {err[-2000:]}")
-            records[desc] = json.loads(Path(tmp, f"cli_{desc}.json").read_text())[0]
-    finally:
-        for p in children.values():
-            if p.is_alive():
-                p.kill()
-        for proc in cli.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
-        shutil.rmtree(tmp, ignore_errors=True)
+    tmp, children, cli = started["tmp"], started["children"], started["cli"]
+    mesh = make_host_mesh(DEVICE)
+    real = dryrun_real(seed, mesh)
+    dist.destroy_process_group()
+    deadline = time.perf_counter() + DRYRUN["timeout_s"]
+    for k, p in children.items():
+        p.join(max(deadline - time.perf_counter(), 1))
+        if p.exitcode != 0:
+            raise AssertionError(f"dryrun: the {k} trace ended with {p.exitcode}")
+    traced = {k: json.loads(Path(tmp, f"{k}.json").read_text()) for k in children}
+    records = {}
+    for desc, proc in cli.items():
+        _, err = proc.communicate(timeout=max(deadline - time.perf_counter(), 1))
+        if proc.returncode != 0:
+            raise AssertionError(f"dryrun: the CLI on {desc} failed: {err[-2000:]}")
+        records[desc] = json.loads(Path(tmp, f"cli_{desc}.json").read_text())[0]
+    traces_wall = time.perf_counter() - started["t0"]
 
     lines, ok = [], True
     for kind in ("train", "decode"):
@@ -3372,7 +3843,7 @@ def phase_dryrun(seed: int) -> list:
         lines.append(line)
         ok &= rec["status"] == "ok" and rec["mesh"] == desc
     done = {"phase": "dryrun", "step": "done", "launches": read_counts(),
-            "seconds": time.perf_counter() - t_phase}
+            "seconds": time.perf_counter() - t_phase, "traces_wall_s": traces_wall}
     emit(done)
     if any(done["launches"].values()):
         raise AssertionError("dryrun: a kernel of the MSJ path launched on the model path")
@@ -3391,6 +3862,10 @@ def main() -> int:
     ap.add_argument("--compare-with", metavar="TREE",
                     help="another checkout of the port: time its bloom wrappers beside "
                          "this tree's on the same main-path inputs")
+    ap.add_argument("--mesh-tp-only", nargs="?", const="", metavar="PORT_SRC",
+                    help="only the mesh phase's part (d): four gloo ranks, then its checks; "
+                         "with PORT_SRC (another checkout's src) only its training, on that "
+                         "port, printing each rank's peak")
     args = ap.parse_args()
 
     import torch
@@ -3398,6 +3873,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if args.mesh_tp_only is not None:
+        return mesh_tp_only(args.seed, args.mesh_tp_only or None)
 
     from repro_torch.core import queries
     from repro_torch.core.algebra import semijoins_of
@@ -3482,13 +3959,17 @@ def main() -> int:
     for spec in LM_SERVE:
         phase_lm_serve(args.seed, spec)
         torch.cuda.empty_cache()
-    # the pipeline's probe launches count on the kernels line
-    e2e.append(phase_train(args.seed, TRAIN)[0])
-    torch.cuda.empty_cache()
-    # and the mesh path's: every gloo rank's and the NCCL run's
-    e2e.append(phase_mesh(args.seed)[0])
-    torch.cuda.empty_cache()
-    phase_dryrun(args.seed)
+    traces = start_dryrun_traces()
+    try:
+        # the pipeline's probe launches count on the kernels line
+        e2e.append(phase_train(args.seed, TRAIN)[0])
+        torch.cuda.empty_cache()
+        # and the mesh path's: every gloo rank's and the NCCL run's
+        e2e.append(phase_mesh(args.seed)[0])
+        torch.cuda.empty_cache()
+        phase_dryrun(args.seed, traces)
+    finally:
+        stop_dryrun(traces)
     torch.cuda.empty_cache()
 
     sources = {

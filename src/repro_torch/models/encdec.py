@@ -13,11 +13,21 @@ the reference stacks and scans (``enc_layers.<i>.*``, ``dec_layers.<i>.*``);
 caches are written in place.
 
 Sharded (:mod:`~repro_torch.models.parallel`): each layer's parameters
-are gathered whole (over every axis: this family computes no
-tensor-parallel part) inside its body; each decoder layer's caches are
-gathered over ``model`` for the rank's rows and its slice written back.
+are gathered over the FSDP axes inside its body, and where ``model`` has
+more than one rank each layer computes the rank's heads and ``d_ff``
+slice (:func:`_tp_plan`): column-parallel ``wq wk wv w1``, row-parallel
+``wo w2`` summed over ``model``; the cross-attention's K and V of the
+rank's heads from the whole ``enc_out``.  Prefill re-lays each layer's
+K and V onto the ``head_dim``-sharded caches of ``cache_specs``; decode
+reads them there, the q rows all-gathered and the partial scores summed
+(:func:`~repro_torch.models.layers.decode_attention`).  Where the rules
+do not shard a leaf as that needs, the layer is gathered whole over
+``model`` too and every rank computes it, one layer's caches gathered
+over ``model`` at a time.
 """
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import torch
 from torch import nn
@@ -133,16 +143,47 @@ def _positions(B: int, S: int, device):
     return torch.arange(S, device=device).broadcast_to((B, S))
 
 
+_ENC = {"attn.wq": -1, "attn.wk": -1, "attn.wv": -1, "mlp.w1": -1, "attn.wo": -2,
+        "mlp.w2": -2}
+_DEC = {f"{a}.{w}": d for a in ("self_attn", "cross_attn")
+        for w, d in (("wq", -1), ("wk", -1), ("wv", -1), ("wo", -2))}
+_DEC.update({"mlp.w1": -1, "mlp.w2": -2})
+_CACHE = ("self_k", "self_v", "cross_k", "cross_v")
+
+
+def _tp_plan(cfg, lp, *, serve: bool):
+    """How encoder or decoder layer ``lp`` (DTensor parameters) computes
+    tensor-parallel in the open sharded context: ``tp`` and its
+    parameters' ``model`` modes, or None where it cannot (no context, one
+    ``model`` rank, heads that do not split into whole heads a rank, a
+    projection not split on its column or row dim, or in serving a cache
+    leaf not split on ``head_dim``)."""
+    def make(s):
+        want = _ENC if isinstance(lp, EncLayer) else _DEC
+        modes = parallel.local_modes(s, {k: (lp.get_parameter(k), d) for k, d in want.items()})
+        if modes is None or cfg.n_heads % s.nm or cfg.n_kv % s.nm or serve and any(
+                s.cache_dims.get(k) != -1 for k in _CACHE):
+            return None
+        return SimpleNamespace(tp=s.tp, modes=modes)
+
+    return parallel.plan(lp, serve, make)
+
+
+def _layer(cfg, lp, *, serve: bool):
+    """(``lp``'s parameters as this rank computes with them, ``tp`` or None)."""
+    plan = _tp_plan(cfg, lp, serve=serve)
+    return parallel.layer(lp, plan and plan.modes), plan and plan.tp
+
+
 def _enc_layer(cfg, lp: EncLayer, x, positions):
-    lp = parallel.layer(lp)
+    lp, tp = _layer(cfg, lp, serve=False)
     B, T, _ = x.shape
-    h = rmsnorm(x, lp.ln1.to(x.dtype), cfg.rmsnorm_eps)
+    h = parallel.enter(rmsnorm(x, lp.ln1.to(x.dtype), cfg.rmsnorm_eps), tp)
     q, k, v = qkv_project(lp.attn, h, cfg.head_dim, positions,
                           theta=cfg.rope_theta)
     o = attention(q, k, v, causal=False, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    x = x + o.reshape(B, T, -1) @ lp.attn.wo.to(x.dtype)
-    h = rmsnorm(x, lp.ln2.to(x.dtype), cfg.rmsnorm_eps)
-    return x + gelu_ffn(h, lp.mlp.w1.to(x.dtype), lp.mlp.w2.to(x.dtype))
+    x = x + parallel.reduce(o.reshape(B, T, -1) @ lp.attn.wo.to(x.dtype), tp)
+    return _ffn(cfg, lp, x, tp)
 
 
 def encode(cfg, params: EncDec, embeds):
@@ -155,64 +196,74 @@ def encode(cfg, params: EncDec, embeds):
     return final_norm(cfg, params, x, "enc_norm")
 
 
-def _cross_kv(lp: DecLayer, enc_out, cfg):
-    """The cross-attention K/V of one decoder layer (no RoPE)."""
+def _cross_kv(lp: DecLayer, enc_out, cfg, tp=None):
+    """The cross-attention K/V of one decoder layer (no RoPE); with ``tp``
+    the rank's heads."""
     B, T, _ = enc_out.shape
-    k = (enc_out @ lp.cross_attn.wk.to(enc_out.dtype)).reshape(B, T, cfg.n_kv, cfg.head_dim)
-    v = (enc_out @ lp.cross_attn.wv.to(enc_out.dtype)).reshape(B, T, cfg.n_kv, cfg.head_dim)
+    enc_out = parallel.enter(enc_out, tp)
+    k = (enc_out @ lp.cross_attn.wk.to(enc_out.dtype)).reshape(B, T, -1, cfg.head_dim)
+    v = (enc_out @ lp.cross_attn.wv.to(enc_out.dtype)).reshape(B, T, -1, cfg.head_dim)
     return k, v
 
 
-def _cross(cfg, lp: DecLayer, x, attend):
-    """The cross-attention half-block: ``attend(q)`` -> (B, S, H, D)."""
+def _cross(cfg, lp: DecLayer, x, attend, tp=None, whole=None):
+    """The cross-attention half-block: ``attend(q)`` -> (B, S, H, D), or
+    with ``tp`` the rank's block of its heads (the ``wo`` rows it holds);
+    ``whole`` maps the rank's q columns to the ones it attends with."""
     B, S, _ = x.shape
-    h = rmsnorm(x, lp.lnx.to(x.dtype), cfg.rmsnorm_eps)
-    q = (h @ lp.cross_attn.wq.to(x.dtype)).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    return x + attend(q).reshape(B, S, -1) @ lp.cross_attn.wo.to(x.dtype)
+    h = parallel.enter(rmsnorm(x, lp.lnx.to(x.dtype), cfg.rmsnorm_eps), tp)
+    q = h @ lp.cross_attn.wq.to(x.dtype)
+    q = (q if whole is None else whole(q)).reshape(B, S, -1, cfg.head_dim)
+    return x + parallel.reduce(attend(q).reshape(B, S, -1) @ lp.cross_attn.wo.to(x.dtype), tp)
 
 
-def _ffn(cfg, lp, x):
-    h = rmsnorm(x, lp.ln2.to(x.dtype), cfg.rmsnorm_eps)
-    return x + gelu_ffn(h, lp.mlp.w1.to(x.dtype), lp.mlp.w2.to(x.dtype))
+def _ffn(cfg, lp, x, tp=None):
+    h = parallel.enter(rmsnorm(x, lp.ln2.to(x.dtype), cfg.rmsnorm_eps), tp)
+    return x + parallel.reduce(gelu_ffn(h, lp.mlp.w1.to(x.dtype), lp.mlp.w2.to(x.dtype)), tp)
 
 
-def _dec_layer(cfg, lp: DecLayer, x, enc_out, positions):
+def _dec_layer(cfg, lp: DecLayer, x, enc_out, positions, tp=None):
     """One teacher-forced decoder layer (``lp`` as :func:`parallel.layer
-    <repro_torch.models.parallel.layer>` gives it). Returns (x', (k, v))."""
+    <repro_torch.models.parallel.layer>` gives it; with ``tp`` the rank's
+    heads). Returns (x', (k, v))."""
     B, S, _ = x.shape
-    h = rmsnorm(x, lp.ln1.to(x.dtype), cfg.rmsnorm_eps)
+    h = parallel.enter(rmsnorm(x, lp.ln1.to(x.dtype), cfg.rmsnorm_eps), tp)
     q, k, v = qkv_project(lp.self_attn, h, cfg.head_dim, positions,
                           theta=cfg.rope_theta)
     o = attention(q, k, v, causal=True, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    x = x + o.reshape(B, S, -1) @ lp.self_attn.wo.to(x.dtype)
-    kx, vx = _cross_kv(lp, enc_out, cfg)
+    x = x + parallel.reduce(o.reshape(B, S, -1) @ lp.self_attn.wo.to(x.dtype), tp)
+    kx, vx = _cross_kv(lp, enc_out, cfg, tp)
     x = _cross(cfg, lp, x, lambda qx: attention(qx, kx, vx, causal=False,
-                                                q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk))
-    return _ffn(cfg, lp, x), (k, v)
+                                                q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk), tp)
+    return _ffn(cfg, lp, x, tp), (k, v)
 
 
 def decode_full(cfg, params: EncDec, tokens, enc_out, *, collect_kv=False, on_layer=None):
     """Teacher-forced decoder pass. Returns (hidden, self-kv or None), the
     self K/V layer-stacked as (L, B, S, Hkv, D) with ``collect_kv``; with
-    ``on_layer``, ``on_layer(i, lp, k, v)`` is called with each layer's
-    parameters and self K/V instead."""
+    ``on_layer``, ``on_layer(i, lp, k, v, tp)`` is called with each layer's
+    parameters, self K/V (of the rank's heads with ``tp``) and ``tp``
+    instead."""
     x = embed_tokens(cfg, params, tokens)
     positions = _positions(x.shape[0], x.shape[1], x.device)
     kvs = None
     if collect_kv or on_layer is not None:
         ks, vs = [], []
         for i, lp in enumerate(params.dec_layers):
-            lp = parallel.layer(lp)
-            x, (k, v) = _dec_layer(cfg, lp, x, enc_out, positions)
+            lp, tp = _layer(cfg, lp, serve=on_layer is not None)
+            x, (k, v) = _dec_layer(cfg, lp, x, enc_out, positions, tp)
             if on_layer is not None:
-                on_layer(i, lp, k, v)
+                on_layer(i, lp, k, v, tp)
             else:
                 ks.append(k)
                 vs.append(v)
         kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
     else:
-        body = remat(cfg, lambda x, lp, enc_out: _dec_layer(cfg, parallel.layer(lp), x, enc_out,
-                                                            positions)[0])
+        def body(x, lp, enc_out):
+            lp, tp = _layer(cfg, lp, serve=False)
+            return _dec_layer(cfg, lp, x, enc_out, positions, tp)[0]
+
+        body = remat(cfg, body)
         for lp in params.dec_layers:
             x = body(x, lp, enc_out)
     return final_norm(cfg, params, x), kvs
@@ -250,12 +301,12 @@ def prefill(cfg, params: EncDec, batch, max_len: int):
     cache = parallel.new_cache(
         lambda dev: init_cache(cfg, B, max_len, enc_out.shape[1], device=dev), params.device)
 
-    def keep(i, lp, k, v):
-        cache["self_k"][i][:, :S] = parallel.cache_part("self_k", k)
-        cache["self_v"][i][:, :S] = parallel.cache_part("self_v", v)
-        kx, vx = _cross_kv(lp, enc_out, cfg)
-        parallel.cache_store(cache, "cross_k", i, kx)
-        parallel.cache_store(cache, "cross_v", i, vx)
+    def keep(i, lp, k, v, tp):
+        cache["self_k"][i][:, :S] = parallel.heads_part("self_k", k, tp)
+        cache["self_v"][i][:, :S] = parallel.heads_part("self_v", v, tp)
+        kx, vx = _cross_kv(lp, enc_out, cfg, tp)
+        cache["cross_k"][i].copy_(parallel.heads_part("cross_k", kx, tp))
+        cache["cross_v"][i].copy_(parallel.heads_part("cross_v", vx, tp))
 
     hidden, _ = decode_full(cfg, params, batch["tokens"], enc_out, on_layer=keep)
     cache["len"].fill_(S)
@@ -264,25 +315,37 @@ def prefill(cfg, params: EncDec, batch, max_len: int):
 
 def decode_step(cfg, params: EncDec, cache, tokens):
     """One decode step. tokens: (B, 1) -> (cache', logits (B, V)); the self
-    K/V are written in place and every slot's clock advances."""
+    K/V are written in place and every slot's clock advances.
+    Tensor-parallel, as ``transformer.layer_decode``: q, k and v from the
+    rank's column blocks all-gathered, the new token's ``head_dim`` slice
+    written, the partial scores summed, the output's row block through the
+    rank's ``wo`` rows."""
     x = embed_tokens(cfg, params, tokens)  # (B, 1, d)
     length = cache["len"]
     B = x.shape[0]
     T_a = cache["cross_k"].shape[2]
     pos = length.broadcast_to((B,))[:, None]
     for i, lp in enumerate(params.dec_layers):
-        lp = parallel.layer(lp)
-        kc, vc, kx, vx = (parallel.cache_layer(cache, k, i)
-                          for k in ("self_k", "self_v", "cross_k", "cross_v"))
+        lp, tp = _layer(cfg, lp, serve=True)
+        n, r = (1, 0) if tp is None else (tp.size, tp.rank)
+        kc, vc, kx, vx = (cache[k][i] if tp else parallel.cache_layer(cache, k, i)
+                          for k in _CACHE)
+        whole = None if tp is None else (lambda *t: [parallel.gather_last(u, tp) for u in t])
         h = rmsnorm(x, lp.ln1.to(x.dtype), cfg.rmsnorm_eps)
         q, k, v = qkv_project(lp.self_attn, h, cfg.head_dim, pos,
-                              theta=cfg.rope_theta)
-        kvcache.cache_write_token(kc, vc, k, v, length)
-        o = decode_attention(q, kc, vc, torch.clamp(length + 1, max=kc.shape[1]))
-        parallel.cache_store(cache, "self_k", i, kc)
-        parallel.cache_store(cache, "self_v", i, vc)
-        x = x + o.reshape(B, 1, -1) @ lp.self_attn.wo.to(x.dtype)
-        x = _cross(cfg, lp, x, lambda qx: decode_attention(qx, kx, vx, T_a))
-        x = _ffn(cfg, lp, x)
+                              theta=cfg.rope_theta, whole=whole)
+        D = cfg.head_dim // n
+        kvcache.cache_write_token(kc, vc, k[..., r * D:(r + 1) * D], v[..., r * D:(r + 1) * D],
+                                  length)
+        o = decode_attention(q, kc, vc, torch.clamp(length + 1, max=kc.shape[1]), tp)
+        if tp is None:
+            parallel.cache_store(cache, "self_k", i, kc)
+            parallel.cache_store(cache, "self_v", i, vc)
+        o = parallel.part_last(o.reshape(B, 1, -1), tp)
+        x = x + parallel.reduce(o @ lp.self_attn.wo.to(x.dtype), tp)
+        x = _cross(cfg, lp, x, lambda qx: parallel.part_last(
+            decode_attention(qx, kx, vx, T_a, tp).reshape(B, 1, -1), tp), tp,
+            whole and (lambda q: whole(q)[0]))
+        x = _ffn(cfg, lp, x, tp)
     x = final_norm(cfg, params, x)
     return dict(cache, len=length + 1), _logits(params, x[:, -1])

@@ -14,41 +14,47 @@ on dim 2), the tail's ``conv_tail``/``ssm_tail`` (batch on dim 1) and
 ``len``.  Caches are written in place.
 
 Sharded (:mod:`~repro_torch.models.parallel`): each Mamba-2 layer's
-parameters are gathered whole (over every axis: this family computes no
-tensor-parallel part) inside its body, and the shared block's at each of
-its uses, so no rank holds more than one layer's gathered weights; under
-autograd each use then runs in a remat body too (its recompute gathers
-again, and its gradient is reduce-scattered use by use).  Each layer's
-cache leaves are gathered over ``model`` for the rank's rows and its
-slice written back.
+parameters are gathered over the FSDP axes inside its body, and the
+shared block's at each of its uses, so no rank holds more than one
+layer's gathered weights; under autograd each use then runs in a remat
+body too (its recompute gathers again, and its gradient is
+reduce-scattered use by use).  Where ``model`` has more than one rank,
+each Mamba-2 layer computes the rank's heads (:func:`_mamba_plan`,
+:func:`~repro_torch.models.ssm.mamba2_prefill`) and the shared block is
+the transformer's layer body at width 2·d with its plan
+(:func:`transformer._tp_plan <repro_torch.models.transformer._tp_plan>`:
+the rank's heads and ``d_ff`` slice, its ``down`` rows summed over
+``model``).  The SSM states stay ``N``-sharded, the KV caches
+``head_dim``-sharded, as ``cache_specs`` places them; only the small conv
+windows, split in blocks that do not follow the heads, are gathered over
+``model``, one layer at a time.  Where the rules do not shard a leaf as
+that needs, the layer (or the block) is gathered whole over ``model`` too
+and every rank computes it, one layer's cache gathered at a time.
 """
 from __future__ import annotations
+
+from dataclasses import replace
+from types import SimpleNamespace
 
 import torch
 from torch import nn
 
 from repro_torch.core.relation import resolve_device
 from repro_torch.models import kvcache, parallel, ssm
-from repro_torch.models.layers import (
-    Attention,
-    attention,
-    decode_attention,
-    dense_init,
-    init_attn,
-    qkv_project,
-    rmsnorm,
-    swiglu,
-)
+from repro_torch.models.layers import Attention, dense_init, init_attn, rmsnorm
 from repro_torch.models.ssm_model import MambaLayer, init_mamba_layer
 from repro_torch.models.transformer import (
     MLP,
     _logits,
     _param,
+    _tp_plan,
     ce_loss,
     compute_dtype,
     embed_tokens,
     final_norm,
     init_head,
+    layer_decode,
+    layer_fwd,
     next_token_targets,
     remat,
 )
@@ -133,54 +139,74 @@ def init_params(cfg, seed: int = 0, *, device=None, dtype=None) -> Hybrid:
 # -- shared attention block -------------------------------------------------
 
 
-def _shared_mlp_down(sp: SharedBlock, x, h1, eps):
-    """The block's second half: h1 + SwiGLU(norm(h1)), projected down and
-    added to the residual x."""
-    dt = x.dtype
-    h2 = rmsnorm(h1, sp.ln2.to(dt), eps)
-    m = sp.mlp
-    h1 = h1 + swiglu(h2, m.w1.to(dt), m.w3.to(dt), m.w2.to(dt))
-    return x + h1 @ sp.down.to(dt)
+def _shared_cfg(cfg):
+    """``cfg`` as the transformer's layer body reads it for the shared
+    block: heads of width 2·d / ``n_heads``."""
+    return replace(cfg, head_dim=shared_head_dim(cfg))
 
 
-def shared_block_fwd(cfg, sp: SharedBlock, x, x0, positions):
-    """Full sequence; returns (x', (k, v))."""
-    h0 = torch.cat([x, x0], dim=-1)
-    h = rmsnorm(h0, sp.ln1.to(x.dtype), cfg.rmsnorm_eps)
-    q, k, v = qkv_project(sp.attn, h, shared_head_dim(cfg), positions,
-                          theta=cfg.rope_theta)
-    o = attention(q, k, v, causal=True, window=cfg.window,
-                  q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    B, S = x.shape[:2]
-    h1 = h0 + o.reshape(B, S, -1) @ sp.attn.wo.to(x.dtype)
-    return _shared_mlp_down(sp, x, h1, cfg.rmsnorm_eps), (k, v)
+def _shared_plan(cfg, sp: SharedBlock, *, decode: bool):
+    """The shared block's tensor-parallel plan (``transformer._tp_plan``
+    at width 2·d, ``down`` row-parallel; KV leaves ``attn_k``/``attn_v``),
+    or None."""
+    return _tp_plan(_shared_cfg(cfg), sp, decode=decode, kv=("attn_k", "attn_v"))
 
 
-def shared_block_decode(cfg, sp: SharedBlock, x, x0, k_cache, v_cache, length):
+def _down(sp: SharedBlock, x, h1, tp):
+    """x + h1 @ ``down``; with ``tp``, ``sp.down`` is the rank's row block:
+    the rank's columns of h1 through it, summed over ``model``."""
+    h1 = parallel.part_last(parallel.enter(h1, tp), tp)
+    return x + parallel.reduce(h1 @ sp.down.to(x.dtype), tp)
+
+
+def shared_block_fwd(cfg, sp: SharedBlock, x, x0, positions, plan=None):
+    """Full sequence; returns (x', (k, v)): the transformer's layer body on
+    ``concat(x, x0)`` at width 2·d (tensor-parallel with ``plan``), then
+    ``down`` to d and the residual."""
+    h1, kv = layer_fwd(_shared_cfg(cfg), sp, torch.cat([x, x0], dim=-1), positions, plan)
+    return _down(sp, x, h1, plan and plan.tp), kv
+
+
+def shared_block_decode(cfg, sp: SharedBlock, x, x0, k_cache, v_cache, length, tp=None):
     """One token (B, 1, d) against one group's cache (written in place)."""
-    h0 = torch.cat([x, x0], dim=-1)  # (B, 1, 2d)
-    h = rmsnorm(h0, sp.ln1.to(x.dtype), cfg.rmsnorm_eps)
-    B = x.shape[0]
-    pos = torch.as_tensor(length, device=x.device).broadcast_to((B,))[:, None]
-    q, k, v = qkv_project(sp.attn, h, shared_head_dim(cfg), pos,
-                          theta=cfg.rope_theta)
-    kvcache.cache_write_token(k_cache, v_cache, k, v, length)
-    valid = torch.clamp(length + 1, max=k_cache.shape[1])
-    o = decode_attention(q, k_cache, v_cache, valid)
-    h1 = h0 + o.reshape(B, 1, -1) @ sp.attn.wo.to(x.dtype)
-    return _shared_mlp_down(sp, x, h1, cfg.rmsnorm_eps)
+    h1, _, _ = layer_decode(_shared_cfg(cfg), sp, torch.cat([x, x0], dim=-1), k_cache, v_cache,
+                            length, tp)
+    return _down(sp, x, h1, tp)
 
 
 # -- full model ---------------------------------------------------------------
 
+_HEADS = {"in_proj": -1, "D": -1, "dt_bias": -1, "norm_w": -1, "out_proj": -2}  # split by model
 
-def _mamba_fwd(cfg, lp: MambaLayer, x):
-    """One residual Mamba-2 block; returns (x', its decode cache)."""
-    lp = parallel.layer(lp)
+
+def _mamba_plan(lp: MambaLayer, ssm_leaf: str | None):
+    """How Mamba-2 layer ``lp`` computes tensor-parallel on the rank's heads
+    in the open sharded context: ``tp`` and its parameters' ``model``
+    modes (``conv_w``, ``conv_b`` and ``A_log`` gathered whole, the rank
+    picking its channels), or None where ``model`` does not split a leaf
+    of :data:`_HEADS` so, or in serving its state leaf ``ssm_leaf`` on
+    ``N``."""
+    def make(s):
+        m = lp.mamba
+        modes = parallel.local_modes(s, {f"mamba.{k}": (getattr(m, k), d)
+                                         for k, d in _HEADS.items()})
+        if modes is None or ssm_leaf and s.cache_dims.get(ssm_leaf) != -1:
+            return None
+        modes.update({"mamba.conv_w": "sum", "mamba.conv_b": "sum", "mamba.A_log": "sum"})
+        return SimpleNamespace(tp=s.tp, modes=modes)
+
+    return parallel.plan(lp, ssm_leaf, make)
+
+
+def _mamba_fwd(cfg, lp: MambaLayer, x, ssm_leaf=None):
+    """One residual Mamba-2 block; returns (x', its decode cache, ``tp``)."""
+    plan = _mamba_plan(lp, ssm_leaf)
+    tp = plan and plan.tp
+    lp = parallel.layer(lp, plan and plan.modes)
     h = rmsnorm(x, lp.ln.to(x.dtype), cfg.rmsnorm_eps)
     y, c = ssm.mamba2_prefill(lp.mamba, h, d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
-                              chunk=cfg.ssm_chunk)
-    return x + y, c
+                              chunk=cfg.ssm_chunk, tp=tp)
+    return x + y, c, tp
 
 
 def forward(cfg, params: Hybrid, batch):
@@ -195,7 +221,9 @@ def forward(cfg, params: Hybrid, batch):
     mb = remat(cfg, lambda x, lp: _mamba_fwd(cfg, lp, x)[0])
 
     def shared_use(x, sp):
-        return shared_block_fwd(cfg, parallel.layer(sp), x, x0, positions)[0]
+        plan = _shared_plan(cfg, sp, decode=False)
+        return shared_block_fwd(cfg, parallel.layer(sp, plan and plan.modes), x, x0, positions,
+                                plan)[0]
 
     sb = remat(cfg, shared_use) if parallel.current() is not None else shared_use
     for group in params.groups:
@@ -240,9 +268,21 @@ def init_cache(cfg, batch: int, max_len: int, *, device=None):
     return cache
 
 
+def _store_state(cfg, cache, names, index, c, tp):
+    """A Mamba-2 layer's (conv window, state) ``c`` into cache leaves
+    ``names`` at ``index``: the rank's slices (the window of its channels
+    made whole over ``model`` first)."""
+    conv, state = names
+    parallel.cache_store(cache, conv, index, ssm.mamba2_conv_whole(c["conv"], cfg.ssm_state, tp))
+    parallel.cache_store(cache, state, index, c["ssm"], part=tp is not None)
+
+
 def prefill(cfg, params: Hybrid, batch, max_len: int):
     """Prompt pass writing each group's shared-attention KV and every
-    layer's SSM states into a new cache; returns (cache, last logits)."""
+    layer's SSM states into a new cache; returns (cache, last logits).
+    Sharded, each Mamba-2 layer's final state, of the rank's heads, is
+    re-laid onto the ``N``-sharded cache (one all-to-all), and the shared
+    block's K and V, of the rank's heads, onto the ``head_dim``-sharded one."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed_tokens(cfg, params, tokens)
@@ -250,33 +290,45 @@ def prefill(cfg, params: Hybrid, batch, max_len: int):
     positions = torch.arange(S, device=x.device).broadcast_to((B, S))
     cache = parallel.new_cache(lambda dev: init_cache(cfg, B, max_len, device=dev),
                                params.device)
+
+    def layers(lps, names, index):
+        nonlocal x
+        for j, lp in enumerate(lps):
+            x, c, tp = _mamba_fwd(cfg, lp, x, names[1])
+            if tp is not None:
+                c = dict(c, ssm=parallel.reshard(c["ssm"], -3, -1, tp))
+            _store_state(cfg, cache, names, index(j), c, tp)
+
     for gi, group in enumerate(params.groups):
-        x, (k, v) = shared_block_fwd(cfg, parallel.layer(params.shared), x, x0, positions)
+        plan = _shared_plan(cfg, params.shared, decode=False)
+        x, (k, v) = shared_block_fwd(cfg, parallel.layer(params.shared, plan and plan.modes),
+                                     x, x0, positions, plan)
+        tp = plan.tp if plan is not None and plan.kv_local else None  # K, V of its heads
         kvcache.cache_write_prefill_layer(cache["attn_k"][gi], cache["attn_v"][gi],
-                                          parallel.cache_part("attn_k", k),
-                                          parallel.cache_part("attn_v", v))
-        for j, lp in enumerate(group):
-            x, c = _mamba_fwd(cfg, lp, x)
-            parallel.cache_store(cache, "conv", (gi, j), c["conv"])
-            parallel.cache_store(cache, "ssm", (gi, j), c["ssm"])
-    for i, lp in enumerate(getattr(params, "tail", ())):
-        x, c = _mamba_fwd(cfg, lp, x)
-        parallel.cache_store(cache, "conv_tail", i, c["conv"])
-        parallel.cache_store(cache, "ssm_tail", i, c["ssm"])
+                                          parallel.heads_part("attn_k", k, tp),
+                                          parallel.heads_part("attn_v", v, tp))
+        layers(group, ("conv", "ssm"), lambda j: (gi, j))
+    layers(getattr(params, "tail", ()), ("conv_tail", "ssm_tail"), lambda i: i)
     cache["len"].fill_(S)
     x = final_norm(cfg, params, x)
     return cache, _logits(params, x[:, -1])
 
 
-def _mamba_step(cfg, lp: MambaLayer, x, conv, state):
+def _mamba_step(cfg, lp: MambaLayer, x, cache, names, index):
     """One token through a residual Mamba-2 block; its conv window and
-    state are written in place."""
-    lp = parallel.layer(lp)
+    state are written in place (sharded: the rank's slices; tensor-parallel,
+    the conv window gathered over ``model`` and the rank's ``N`` slice of
+    the state updated where it is)."""
+    plan = _mamba_plan(lp, names[1])
+    tp = plan and plan.tp
+    lp = parallel.layer(lp, plan and plan.modes)
+    conv = parallel.cache_layer(cache, names[0], index)
+    state = cache[names[1]][index] if tp else parallel.cache_layer(cache, names[1], index)
     h = rmsnorm(x, lp.ln.to(x.dtype), cfg.rmsnorm_eps)
-    c, y = ssm.mamba2_decode(lp.mamba, {"conv": conv, "ssm": state}, h[:, 0],
-                             d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim)
-    conv.copy_(c["conv"])
-    state.copy_(c["ssm"])
+    c, y = ssm.mamba2_decode(lp.mamba, {"conv": ssm.mamba2_conv_part(conv, cfg.ssm_state, tp),
+                                        "ssm": state}, h[:, 0],
+                             d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim, tp=tp)
+    _store_state(cfg, cache, names, index, c, tp)
     return x + y[:, None]
 
 
@@ -286,22 +338,20 @@ def decode_step(cfg, params: Hybrid, cache, tokens):
     x = embed_tokens(cfg, params, tokens)  # (B, 1, d)
     x0 = x
     length = cache["len"]
-
-    def step(names, index, fn):
-        """``fn`` on one layer of the cache leaves ``names`` (written in
-        place), the rank's slice written back."""
-        parts = [parallel.cache_layer(cache, n, index) for n in names]
-        out = fn(*parts)
-        for n, t in zip(names, parts):
-            parallel.cache_store(cache, n, index, t)
-        return out
-
     for gi, group in enumerate(params.groups):
-        x = step(("attn_k", "attn_v"), gi, lambda k, v: shared_block_decode(
-            cfg, parallel.layer(params.shared), x, x0, k, v, length))
+        plan = _shared_plan(cfg, params.shared, decode=True)
+        sp = parallel.layer(params.shared, plan and plan.modes)
+        if plan is not None:
+            x = shared_block_decode(cfg, sp, x, x0, cache["attn_k"][gi], cache["attn_v"][gi],
+                                    length, plan.tp)
+        else:
+            k, v = (parallel.cache_layer(cache, n, gi) for n in ("attn_k", "attn_v"))
+            x = shared_block_decode(cfg, sp, x, x0, k, v, length)
+            parallel.cache_store(cache, "attn_k", gi, k)
+            parallel.cache_store(cache, "attn_v", gi, v)
         for j, lp in enumerate(group):
-            x = step(("conv", "ssm"), (gi, j), lambda c, st: _mamba_step(cfg, lp, x, c, st))
+            x = _mamba_step(cfg, lp, x, cache, ("conv", "ssm"), (gi, j))
     for i, lp in enumerate(getattr(params, "tail", ())):
-        x = step(("conv_tail", "ssm_tail"), i, lambda c, st: _mamba_step(cfg, lp, x, c, st))
+        x = _mamba_step(cfg, lp, x, cache, ("conv_tail", "ssm_tail"), i)
     x = final_norm(cfg, params, x)
     return dict(cache, len=length + 1), _logits(params, x[:, -1])

@@ -17,6 +17,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -39,14 +40,24 @@ class _RMSNorm(torch.autograd.Function):
     in float32, ``r`` cast to ``x.dtype``, then ``x * r * w`` in
     ``x.dtype``.  Backward (``_rmsnorm_bwd``): the tensor math stays in
     ``x.dtype``, float32 only for the row statistic ``t``; ``dw`` is summed
-    in float32 and cast to ``w.dtype``."""
+    in float32 and cast to ``w.dtype``.
+
+    With ``tp`` (``models.parallel.TP``) ``x`` and ``w`` are this rank's
+    block of a last dim that the ``model`` ranks split: the row statistics
+    (the sum of squares, and ``t`` in the backward) are all-reduced over
+    the whole width."""
 
     @staticmethod
-    def forward(ctx, x, w, eps):
+    def forward(ctx, x, w, eps, tp=None):
         x32 = x.float()
         sq = (x32 * x32).sum(-1, keepdim=True)
-        r = torch.rsqrt(sq / x.shape[-1] + eps)  # (..., 1) f32
+        n = x.shape[-1]
+        if tp is not None:
+            dist.all_reduce(sq, group=tp.group)
+            n *= tp.size
+        r = torch.rsqrt(sq / n + eps)  # (..., 1) f32
         ctx.save_for_backward(x, w, r)
+        ctx.n, ctx.tp = n, tp
         return x * r.to(x.dtype) * w
 
     @staticmethod
@@ -54,17 +65,20 @@ class _RMSNorm(torch.autograd.Function):
         x, w, r = ctx.saved_tensors
         g = dy * w  # (..., d) in x.dtype
         t = (g.float() * x.float()).sum(-1, keepdim=True)
-        coef = (r * r * r * t / x.shape[-1]).to(x.dtype)  # (..., 1)
+        if ctx.tp is not None:
+            dist.all_reduce(t, group=ctx.tp.group)
+        coef = (r * r * r * t / ctx.n).to(x.dtype)  # (..., 1)
         rx = r.to(x.dtype)
         dx = g * rx - x * coef
         dw = (dy * (x * rx)).float().reshape(-1, x.shape[-1]).sum(0).to(w.dtype)
-        return dx, dw.reshape(w.shape), None
+        return dx, dw.reshape(w.shape), None, None
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, tp=None) -> torch.Tensor:
     """RMSNorm over the last dim with the reference's forward and backward
-    (:class:`_RMSNorm`); ``w`` has shape ``(d,)``."""
-    return _RMSNorm.apply(x, w, eps)
+    (:class:`_RMSNorm`); ``w`` has shape ``(d,)``; with ``tp`` over a last
+    dim split by the ``model`` ranks."""
+    return _RMSNorm.apply(x, w, eps, tp)
 
 
 def swiglu(x, w1, w3, w2):

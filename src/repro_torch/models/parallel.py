@@ -31,18 +31,24 @@ open:
   rank): :func:`enter` (identity forward, all-reduce of the gradient),
   :func:`reduce` (all-reduce of partial sums, identity backward),
   :func:`gather_last` (all-gather of column blocks, reduce-scatter
+  backward) and :func:`scatter_last` (its inverse), :func:`part_last`
+  (the rank's block), :func:`take_cols` and :func:`reshard` (one
+  ``all_to_all_single`` that re-lays a shard, the inverse exchange
   backward), the vocabulary-parallel embedding (:func:`embed_lookup`,
   :func:`vocab_tp`); each is the identity without a ``model`` axis, so
-  the families' layer bodies serve both cases.
+  the families' layer bodies serve both cases.  :func:`plan` keeps a
+  layer's tensor-parallel plan per context, :func:`local_modes` checks
+  that ``model`` shards its parameters as the plan needs.
 * **Caches** stay in ``cache_specs``' placement: each rank holds its rows
   and its slice of the leaf's ``model``-sharded dim.  :func:`cache_layer`
   gathers one layer of a leaf over ``model`` (the families that compute
   every head), :func:`cache_store` writes the rank's slice back,
-  :func:`cache_part` cuts it from a whole value, :func:`new_cache`
-  allocates the rank's shards.
+  :func:`cache_part` cuts it from a whole value (:func:`heads_part` from
+  the rank's heads), :func:`new_cache` allocates the rank's shards.
 
 :data:`STATS` counts the gathered bytes live at once (parameters and
-caches apart), from each gather's output storages.  Outside a context
+caches apart), from each gather's output storages; :data:`CACHE_GATHERS`
+counts :func:`cache_layer`'s gathers by leaf.  Outside a context
 every function here returns its input: the unsharded paths run as they
 did.
 """
@@ -61,12 +67,15 @@ _ACTIVE: list = []  # the open contexts, innermost last
 
 #: gathered bytes live now and at most, per kind ("params", "cache")
 STATS = {"params_live": 0, "params_peak": 0, "cache_live": 0, "cache_peak": 0}
+#: cache leaf name -> layers of it gathered over ``model`` (:func:`cache_layer`)
+CACHE_GATHERS: dict = {}
 
 
 def reset_stats() -> None:
-    """Peaks from now on (the live counts stay)."""
+    """Peaks and gather counts from now on (the live counts stay)."""
     STATS["params_peak"] = STATS["params_live"]
     STATS["cache_peak"] = STATS["cache_live"]
+    CACHE_GATHERS.clear()
 
 
 def _untrack(kind: str, n: int) -> None:
@@ -280,6 +289,13 @@ class _Reduce(torch.autograd.Function):
         return g, None
 
 
+def _all_gather_last(x, group, n: int):
+    src = x.contiguous()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim=-1)
+
+
 class _GatherLast(torch.autograd.Function):
     """The ``model`` ranks' column blocks side by side; the gradient of
     the whole, a partial sum on each rank, is reduce-scattered back."""
@@ -287,14 +303,45 @@ class _GatherLast(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, n):
         ctx.group, ctx.n = group, n
-        src = x.contiguous()
-        parts = [torch.empty_like(src) for _ in range(n)]
-        dist.all_gather(parts, src, group=group)
-        return torch.cat(parts, dim=-1)
+        return _all_gather_last(x, group, n)
 
     @staticmethod
     def backward(ctx, g):
         return _reduce_scatter(g, g.ndim - 1, ctx.group, ctx.n).contiguous(), None, None
+
+
+class _ScatterLast(torch.autograd.Function):
+    """The sum over the ``model`` ranks of ``x``, this rank's block of its
+    last dim (reduce-scatter); the gradient's blocks all-gathered."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return _reduce_scatter(x, x.ndim - 1, group, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_last(g, ctx.group, ctx.n), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """Rows of ``x`` (dim 0) exchanged over ``group``: ``send[j]`` rows,
+    in order, to rank j; ``recv[s]`` rows from rank s, stacked in rank
+    order.  The gradient goes back by the inverse exchange."""
+
+    @staticmethod
+    def forward(ctx, x, group, send, recv):
+        ctx.group, ctx.send, ctx.recv = group, send, recv
+        out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+        dist.all_to_all_single(out, x.contiguous(), list(recv), list(send), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.new_empty((sum(ctx.send),) + tuple(g.shape[1:]))
+        dist.all_to_all_single(out, g.contiguous(), list(ctx.send), list(ctx.recv),
+                               group=ctx.group)
+        return out, None, None, None
 
 
 def enter(x, tp: TP | None):
@@ -312,6 +359,86 @@ def gather_last(x, tp: TP | None):
     """``tp``'s ranks' column blocks side by side; ``x`` itself without
     one."""
     return x if tp is None else _GatherLast.apply(x, tp.group, tp.size)
+
+
+def scatter_last(x, tp: TP | None):
+    """The sum over ``tp``'s ranks of ``x``, this rank's block of its last
+    dim; ``x`` itself without one."""
+    return x if tp is None else _ScatterLast.apply(x, tp.group, tp.size)
+
+
+def part_last(x, tp: TP | None):
+    """This rank's block of ``x``'s last dim (a view); ``x`` itself
+    without ``tp``."""
+    return x if tp is None else torch.chunk(x, tp.size, dim=-1)[tp.rank]
+
+
+def take_cols(w, ranges, tp: TP | None):
+    """The columns (last dim) that this rank computes with, from ``w``,
+    its block of a width that ``model`` splits into equal contiguous
+    blocks (rank s holds block s).  ``ranges(r)`` gives rank r's columns
+    of the whole width as sorted, disjoint ``(lo, hi)``; the result holds
+    this rank's, in order.  One all-to-all of the column pieces: a piece
+    that several ranks want is sent to each, and its gradients add up.
+    ``w`` itself without ``tp``."""
+    if tp is None:
+        return w
+    c = w.shape[-1]
+    rows = w.movedim(-1, 0)
+
+    def overlap(lo, hi, s):  # (a, b) of [lo, hi) within rank s's block
+        return max(lo, s * c), min(hi, (s + 1) * c)
+
+    pieces, send = [], []
+    for dst in range(tp.size):
+        n = 0
+        for a, b in (overlap(lo, hi, tp.rank) for lo, hi in ranges(dst)):
+            if a < b:
+                pieces.append(rows[a - tp.rank * c:b - tp.rank * c])
+                n += b - a
+        send.append(n)
+    recv = [sum(max(0, b - a) for a, b in (overlap(lo, hi, s) for lo, hi in ranges(tp.rank)))
+            for s in range(tp.size)]
+    x = torch.cat(pieces) if pieces else rows[:0]
+    return _AllToAll.apply(x, tp.group, tuple(send), tuple(recv)).movedim(0, -1)
+
+
+def reshard(x, src: int, dst: int, tp: TP | None):
+    """``x``, this rank's block along dim ``src`` of a value that ``model``
+    splits there, as this rank's block along dim ``dst`` instead (whole
+    along ``src``, the ranks' blocks in order): one all-to-all of equal
+    pieces.  ``x`` itself without ``tp``."""
+    if tp is None:
+        return x
+    src, dst = src % x.ndim, dst % x.ndim
+    rows = x.movedim(dst, 0)
+    k = rows.shape[0] // tp.size
+    out = _AllToAll.apply(rows, tp.group, (k,) * tp.size, (k,) * tp.size)
+    at = src + 1 if src < dst else src  # ``src``'s place in ``rows``
+    out = out.unflatten(0, (tp.size, k)).movedim(0, at).flatten(at, at + 1)
+    return out.movedim(0, dst)
+
+
+def plan(module, key, make):
+    """``make(shards)``, the tensor-parallel plan of ``module`` for
+    ``key``, made once per open :class:`Shards` context; None without a
+    context or with one ``model`` rank."""
+    s = current()
+    if s is None or s.tp is None:
+        return None
+    k = (id(module), key)
+    if k not in s.plans:
+        s.plans[k] = make(s)
+    return s.plans[k]
+
+
+def local_modes(s: Shards, want: dict) -> dict | None:
+    """``{path: "local"}`` for ``want``, path -> (DTensor parameter, the dim
+    counted from the end that the plan needs ``model`` to shard), or None
+    where ``model`` shards one of them otherwise."""
+    if any(s.model_dim(p) != d for p, d in want.values()):
+        return None
+    return dict.fromkeys(want, "local")
 
 
 def vocab_tp(p, dim: int):
@@ -378,6 +505,19 @@ def cache_part(name: str, t):
     return t if d is None else torch.chunk(t, s.nm, dim=d)[s.model_rank]
 
 
+def heads_part(name: str, t, tp: TP | None):
+    """This rank's part for cache leaf ``name`` of ``t`` ``(..., heads,
+    head_dim)``, which holds the rank's block of the heads with ``tp``
+    (every head without one): re-laid onto its ``head_dim`` slice where
+    ``model`` splits the leaf's last dim (one all-to-all), else gathered
+    and cut as :func:`cache_part` cuts a whole value."""
+    if tp is not None:
+        if current().cache_dims.get(name) == -1:
+            return reshard(t, -2, -1, tp)
+        t = gather_last(t.flatten(-2), tp).unflatten(-1, (-1, t.shape[-1]))
+    return cache_part(name, t)
+
+
 def cache_layer(cache: dict, name: str, index):
     """``cache[name][index]`` (one layer) whole along its ``model``-sharded
     dim, for this rank's rows: gathered over ``model`` (a copy) in a
@@ -390,15 +530,16 @@ def cache_layer(cache: dict, name: str, index):
     src = v.contiguous()
     parts = [torch.empty_like(src) for _ in range(s.nm)]
     dist.all_gather(parts, src, group=s.tp.group)
+    CACHE_GATHERS[name] = CACHE_GATHERS.get(name, 0) + 1
     return _track(torch.cat(parts, dim=d), "cache")
 
 
-def cache_store(cache: dict, name: str, index, value) -> None:
-    """Write ``value`` (one layer, as :func:`cache_layer` gave it) into
-    ``cache[name][index]``: this rank's slice of it; nothing when it is
-    that view already."""
+def cache_store(cache: dict, name: str, index, value, part: bool = False) -> None:
+    """Write ``value`` (one layer, as :func:`cache_layer` gave it, or with
+    ``part`` this rank's slice already) into ``cache[name][index]``: this
+    rank's slice of it; nothing when it is that view already."""
     dst = cache[name][index]
-    value = cache_part(name, value)
+    value = value if part else cache_part(name, value)
     if value.untyped_storage()._cdata == dst.untyped_storage()._cdata \
             and value.storage_offset() == dst.storage_offset():
         return

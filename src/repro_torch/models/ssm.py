@@ -26,6 +26,22 @@ Casts follow the reference: projections in ``x.dtype``, ``dt`` softplus in
 float32 plus ``dt_bias``, states float32, ``y + x·D`` in ``x.dtype``.
 ``A_log`` and ``dt_bias`` enter float32 arithmetic uncast in the
 reference, so the modules keep them in float32 whatever the model's dtype.
+A float64 model (a reference for float32 runs) keeps float64 throughout.
+
+Tensor-parallel over ``model`` with a ``tp`` (``models.parallel.TP``;
+the ``parallel`` helpers are identities without one, so one body serves
+both cases).  Mamba-1 splits ``d_inner``: the block's parameters are the
+rank's ``d_inner`` slices (``in_proj``'s block of ``[x | z]`` columns
+re-laid into the rank's ``x`` and ``z`` columns by one all-to-all,
+``x_proj``'s column block into its row block), ``x_proj``'s partial sums
+and the row-parallel ``out_proj``'s are summed over ``model``.  Mamba-2
+splits the heads: ``in_proj``'s columns re-laid into the rank's ``z``,
+``x`` and ``dt`` heads and all of ``B`` and ``C``, ``conv_w``/``conv_b``
+and ``A_log`` given whole (the rank picks its channels), the gated norm's
+sum of squares summed over ``model``.  Decode keeps the SSM state
+``N``-sharded (``cache_specs``): each rank updates its ``N`` slice of
+every channel from the all-gathered ``x`` and ``dt`` rows, and ``y``'s
+partial sums over ``N`` are reduce-scattered to the rank's channels.
 """
 from __future__ import annotations
 
@@ -33,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import parallel
 from repro_torch.models.layers import dense_init, rmsnorm
 
 
@@ -64,6 +81,16 @@ def _conv_window(xs, W: int):
     if S >= W - 1:
         return xs[:, S - (W - 1):]
     return F.pad(xs, (0, 0, W - 1 - S, 0))
+
+
+def _wide(dtype):
+    """float32, or float64 for float64."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _f32(t):
+    """``t`` in float32, or in float64 if it is float64."""
+    return t.to(_wide(t.dtype))
 
 
 def _chunks(S: int, chunk: int) -> tuple[int, int]:
@@ -145,13 +172,28 @@ def _chunk_recurrence(dA, dBx):
     return hs
 
 
-def _mamba1_inner(p: Mamba1, x, h0, *, d_state: int, chunk: int):
+def _xz_cols(q: int, tp):
+    """Rank r's columns of Mamba-1's ``in_proj`` ``[x | z]`` (``q`` of
+    ``d_inner`` a rank over ``tp``'s ranks): its ``x`` block, then its ``z``
+    block."""
+    return lambda r: [(r * q, (r + 1) * q), (tp.size * q + r * q, tp.size * q + (r + 1) * q)]
+
+
+def _x_proj(p: Mamba1, dtype, tp):
+    """``x_proj`` in ``dtype`` (with ``tp``: its column block re-laid into
+    the rank's ``d_inner`` rows)."""
+    return parallel.reshard(p.x_proj.to(dtype), -1, -2, tp)
+
+
+def _mamba1_inner(p: Mamba1, x, h0, *, d_state: int, chunk: int, tp=None):
     """Selective scan over (B, S, d_inner) activations; returns (y, h_last)."""
     B, S, DI = x.shape
     dt_rank = p.dt_proj.shape[0]
-    bcdt = x @ p.x_proj.to(x.dtype)
+    # summed over ``model``, then used on the rank's channels: its gradient
+    # is a partial sum again
+    bcdt = parallel.enter(parallel.reduce(x @ _x_proj(p, x.dtype, tp), tp), tp)
     dt_low, Bc, Cc = torch.split(bcdt, [dt_rank, d_state, d_state], dim=-1)
-    dt = F.softplus((dt_low @ p.dt_proj.to(x.dtype)).to(torch.float32) + p.dt_bias)
+    dt = F.softplus(_f32(dt_low @ p.dt_proj.to(x.dtype)) + p.dt_bias)
     A = -torch.exp(p.A_log)  # (DI, N)
 
     c, nc = _chunks(S, chunk)
@@ -160,8 +202,8 @@ def _mamba1_inner(p: Mamba1, x, h0, *, d_state: int, chunk: int):
     Bs, Cs = _pad_seq(Bc, n), _pad_seq(Cc, n)
     dts = dts.reshape(B, nc, c, DI)
     dA = torch.exp(dts[..., None] * A)  # (B, nc, c, DI, N) f32
-    dBx = (dts * xs.to(torch.float32).reshape(B, nc, c, DI))[..., None] \
-        * Bs.to(torch.float32).reshape(B, nc, c, 1, d_state)
+    dBx = (dts * _f32(xs).reshape(B, nc, c, DI))[..., None] \
+        * _f32(Bs).reshape(B, nc, c, 1, d_state)
     hs = _chunk_recurrence(dA, dBx)
     del dA, dBx
     # Π dA over each chunk's prefix, and the state carried across chunks:
@@ -172,30 +214,32 @@ def _mamba1_inner(p: Mamba1, x, h0, *, d_state: int, chunk: int):
         carries.append(h)
         h = hs[:, z, -1] + prodA[:, z, -1] * h
     hs += prodA * torch.stack(carries, 1)[:, :, None]
-    y = torch.einsum("bzcdn,bzcn->bzcd", hs, Cs.to(torch.float32).reshape(B, nc, c, d_state))
+    y = torch.einsum("bzcdn,bzcn->bzcd", hs, _f32(Cs).reshape(B, nc, c, d_state))
     y = y.to(x.dtype).reshape(B, n, DI)[:, :S]
     return y + x * p.D.to(x.dtype), h
 
 
-def mamba1_prefill(p: Mamba1, x, *, d_state: int, chunk: int = 128):
+def mamba1_prefill(p: Mamba1, x, *, d_state: int, chunk: int = 128, tp=None):
     """The Mamba-1 block over a prompt x (B, S, d_model); returns (out,
     cache): the pre-conv window of the last W-1 positions and the final
-    SSM state (the reference's ``ssm_model.prefill`` layer body)."""
+    SSM state (the reference's ``ssm_model.prefill`` layer body); with
+    ``tp`` both of the rank's ``d_inner`` slice."""
     B = x.shape[0]
     dt = x.dtype
     DI, W = p.conv_w.shape
-    xi, z = (x @ p.in_proj.to(dt)).chunk(2, dim=-1)
+    w_in = parallel.take_cols(p.in_proj.to(dt), _xz_cols(DI, tp), tp)
+    xi, z = (parallel.enter(x, tp) @ w_in).chunk(2, dim=-1)
     conv_state = _conv_window(xi, W)
     xi = F.silu(causal_conv1d(xi, p.conv_w.to(dt), p.conv_b.to(dt)))
-    h0 = torch.zeros((B, DI, d_state), dtype=torch.float32, device=x.device)
-    y, h_last = _mamba1_inner(p, xi, h0, d_state=d_state, chunk=chunk)
+    h0 = torch.zeros((B, DI, d_state), dtype=_wide(x.dtype), device=x.device)
+    y, h_last = _mamba1_inner(p, xi, h0, d_state=d_state, chunk=chunk, tp=tp)
     y = y * F.silu(z)
-    return y @ p.out_proj.to(dt), {"conv": conv_state, "ssm": h_last}
+    return parallel.reduce(y @ p.out_proj.to(dt), tp), {"conv": conv_state, "ssm": h_last}
 
 
-def mamba1(p: Mamba1, x, *, d_state: int, chunk: int = 128):
+def mamba1(p: Mamba1, x, *, d_state: int, chunk: int = 128, tp=None):
     """Full Mamba-1 block. x: (B, S, d_model) -> (B, S, d_model)."""
-    return mamba1_prefill(p, x, d_state=d_state, chunk=chunk)[0]
+    return mamba1_prefill(p, x, d_state=d_state, chunk=chunk, tp=tp)[0]
 
 
 def mamba1_init_cache(p: Mamba1, batch: int, d_state: int, dtype=torch.bfloat16):
@@ -207,24 +251,31 @@ def mamba1_init_cache(p: Mamba1, batch: int, d_state: int, dtype=torch.bfloat16)
     }
 
 
-def mamba1_decode(p: Mamba1, cache, xt, *, d_state: int):
-    """One token. xt: (B, d_model) -> (cache', (B, d_model))."""
+def mamba1_decode(p: Mamba1, cache, xt, *, d_state: int, tp=None):
+    """One token. xt: (B, d_model) -> (cache', (B, d_model)).  With ``tp``
+    the conv window is the rank's ``d_inner`` slice and the SSM state its
+    ``N`` slice of every channel (B, d_inner, N/n)."""
     dt_rank = p.dt_proj.shape[0]
     dt = xt.dtype
-    xi, z = (xt @ p.in_proj.to(dt)).chunk(2, dim=-1)
+    DI = p.conv_w.shape[0]
+    xi, z = (xt @ parallel.take_cols(p.in_proj.to(dt), _xz_cols(DI, tp), tp)).chunk(2, dim=-1)
     conv_state, xi = conv_step(cache["conv"], xi, p.conv_w.to(dt), p.conv_b.to(dt))
     xi = F.silu(xi)
-    bcdt = xi @ p.x_proj.to(dt)
+    bcdt = parallel.reduce(xi @ _x_proj(p, dt, tp), tp)
     dt_low, Bc, Cc = torch.split(bcdt, [dt_rank, d_state, d_state], dim=-1)
-    delta = F.softplus((dt_low @ p.dt_proj.to(dt)).to(torch.float32) + p.dt_bias)  # (B, DI)
-    A = -torch.exp(p.A_log)
-    dA = torch.exp(delta[..., None] * A)  # (B, DI, N)
-    dBx = (delta * xi.to(torch.float32))[..., None] * Bc.to(torch.float32)[:, None, :]
+    delta = F.softplus(_f32(dt_low @ p.dt_proj.to(dt)) + p.dt_bias)  # (B, DI)
+    # every channel's x and delta, and A, B, C on the state's N slice
+    A = -torch.exp(parallel.reshard(p.A_log, -2, -1, tp))
+    xa, da = parallel.gather_last(xi, tp), parallel.gather_last(delta, tp)
+    dA = torch.exp(da[..., None] * A)  # (B, DI, N)
+    dBx = (da * _f32(xa))[..., None] \
+        * _f32(parallel.part_last(Bc, tp))[:, None, :]
     h = cache["ssm"] * dA + dBx
-    y = torch.einsum("bdn,bn->bd", h, Cc.to(torch.float32)).to(dt)
+    y = parallel.scatter_last(
+        torch.einsum("bdn,bn->bd", h, _f32(parallel.part_last(Cc, tp))), tp).to(dt)
     y = y + xi * p.D.to(dt)
     y = y * F.silu(z)
-    return {"conv": conv_state, "ssm": h}, y @ p.out_proj.to(dt)
+    return {"conv": conv_state, "ssm": h}, parallel.reduce(y @ p.out_proj.to(dt), tp)
 
 
 # --------------------------------------------------------------------------
@@ -292,11 +343,11 @@ def _ssd_chunk_scan(xh, dt, A, Bc, Cc, h0, *, chunk: int):
     # above the diagonal exp() overflows to inf: select, never multiply by
     # the mask (inf·0 = nan)
     scores = torch.where(causal, cb[:, :, None] * decay, 0.0)  # (B, nc, H, c, c)
-    xdt = xs.to(torch.float32) * dts[..., None]  # (B, nc, c, H, P)
+    xdt = _f32(xs) * dts[..., None]  # (B, nc, c, H, P)
     y_intra = torch.einsum("bzhij,bzjhp->bzihp", scores, xdt)
     # each chunk's own contribution to the state at its end
     w = torch.exp(seg[:, :, -1:] - seg)  # (B, nc, c, H)
-    Bs32, Cs32 = Bs.to(torch.float32), Cs.to(torch.float32)
+    Bs32, Cs32 = _f32(Bs), _f32(Cs)
     own = torch.einsum("bzjhp,bzjn->bzhpn", xdt * w[..., None], Bs32)
     carries, h = [], h0
     for z in range(nc):
@@ -308,35 +359,79 @@ def _ssd_chunk_scan(xh, dt, A, Bc, Cc, h0, *, chunk: int):
     return y, h
 
 
-def mamba2_prefill(p: Mamba2, x, *, d_state: int, head_dim: int = 64, chunk: int = 128):
+def _zxbcdt_cols(q: int, hp: int, N: int, tp):
+    """Rank r's columns of Mamba-2's ``in_proj`` ``[z | x | B | C | dt]``
+    (``q`` channels and ``hp`` heads a rank over ``tp``'s ranks): its ``z``
+    and ``x`` heads, all of ``B`` and ``C``, its ``dt`` heads: the block's
+    own layout at width ``q``."""
+    def cols(r):
+        DI = tp.size * q
+        return [(r * q, (r + 1) * q), (DI + r * q, DI + (r + 1) * q), (2 * DI, 2 * DI + 2 * N),
+                (2 * DI + 2 * N + r * hp, 2 * DI + 2 * N + (r + 1) * hp)]
+    return cols
+
+
+def mamba2_conv_part(t, N: int, tp, dim: int = -1):
+    """The channels of Mamba-2's conv input ``[x | B | C]`` that the rank
+    uses, from ``t`` whole over them along ``dim``: its ``x`` block, all of
+    ``B`` and ``C``; ``t`` itself without ``tp``."""
+    if tp is None:
+        return t
+    DI = t.shape[dim] - 2 * N
+    q = DI // tp.size
+    return torch.cat([t.narrow(dim, tp.rank * q, q), t.narrow(dim, DI, 2 * N)], dim)
+
+
+def mamba2_conv_whole(t, N: int, tp):
+    """The inverse of :func:`mamba2_conv_part` along the last dim: the
+    ranks' ``x`` blocks all-gathered, ``B`` and ``C`` (the same on every
+    rank) after them; ``t`` itself without ``tp``."""
+    if tp is None:
+        return t
+    return torch.cat([parallel.gather_last(t[..., :-2 * N], tp), t[..., -2 * N:]], -1)
+
+
+def _mamba2_in(p: Mamba2, x, d_state: int, head_dim: int, tp):
+    """(z, [x | B | C] before the conv, dt) of x's rows through ``in_proj``
+    (the rank's heads with ``tp``), and the conv's weights and bias on
+    those channels."""
+    DI, N = p.norm_w.shape[0], d_state
+    dt_ = x.dtype
+    zxbcdt = x @ parallel.take_cols(p.in_proj.to(dt_), _zxbcdt_cols(DI, DI // head_dim, N, tp), tp)
+    w, b = (mamba2_conv_part(t.to(dt_), N, tp, 0) for t in (p.conv_w, p.conv_b))
+    # [x, B, C], the reference's concatenation
+    return zxbcdt[..., :DI], zxbcdt[..., DI:2 * DI + 2 * N], zxbcdt[..., 2 * DI + 2 * N:], w, b
+
+
+def mamba2_prefill(p: Mamba2, x, *, d_state: int, head_dim: int = 64, chunk: int = 128,
+                   tp=None):
     """The Mamba-2 block over x (B, S, d_model); returns (out, cache): the
-    pre-conv window of the last W-1 positions and the final SSM state."""
+    pre-conv window of the last W-1 positions and the final SSM state;
+    with ``tp`` the window of the rank's channels (:func:`mamba2_conv_part`)
+    and the state of its heads."""
     B, S, _ = x.shape
     DI = p.norm_w.shape[0]
-    H = p.A_log.shape[0]
+    H = DI // head_dim
     N = d_state
     dt_ = x.dtype
     W = p.conv_w.shape[-1]
-    zxbcdt = x @ p.in_proj.to(dt_)
-    z = zxbcdt[..., :DI]
-    xbc_raw = zxbcdt[..., DI:2 * DI + 2 * N]  # [x, B, C], the reference's concatenation
-    dt = zxbcdt[..., 2 * DI + 2 * N:]
+    z, xbc_raw, dt, conv_w, conv_b = _mamba2_in(p, parallel.enter(x, tp), N, head_dim, tp)
     conv_state = _conv_window(xbc_raw, W)
-    xbc = F.silu(causal_conv1d(xbc_raw, p.conv_w.to(dt_), p.conv_b.to(dt_)))
+    xbc = F.silu(causal_conv1d(xbc_raw, conv_w, conv_b))
     xi, Bc, Cc = torch.split(xbc, [DI, N, N], dim=-1)
-    dt = F.softplus(dt.to(torch.float32) + p.dt_bias)  # (B, S, H)
-    A = -torch.exp(p.A_log)
+    dt = F.softplus(_f32(dt) + p.dt_bias)  # (B, S, H)
+    A = parallel.part_last(-torch.exp(p.A_log), tp)
     xh = xi.reshape(B, S, H, head_dim)
-    h0 = torch.zeros((B, H, head_dim, N), dtype=torch.float32, device=x.device)
+    h0 = torch.zeros((B, H, head_dim, N), dtype=_wide(x.dtype), device=x.device)
     y, h_last = _ssd_chunk_scan(xh, dt, A, Bc, Cc, h0, chunk=chunk)
     y = y + xh * p.D[:, None].to(dt_)
-    y = rmsnorm(y.reshape(B, S, DI) * F.silu(z), p.norm_w.to(dt_))
-    return y @ p.out_proj.to(dt_), {"conv": conv_state, "ssm": h_last}
+    y = rmsnorm(y.reshape(B, S, DI) * F.silu(z), p.norm_w.to(dt_), tp=tp)
+    return parallel.reduce(y @ p.out_proj.to(dt_), tp), {"conv": conv_state, "ssm": h_last}
 
 
-def mamba2(p: Mamba2, x, *, d_state: int, head_dim: int = 64, chunk: int = 128):
+def mamba2(p: Mamba2, x, *, d_state: int, head_dim: int = 64, chunk: int = 128, tp=None):
     """Full Mamba-2 block. x: (B, S, d_model)."""
-    return mamba2_prefill(p, x, d_state=d_state, head_dim=head_dim, chunk=chunk)[0]
+    return mamba2_prefill(p, x, d_state=d_state, head_dim=head_dim, chunk=chunk, tp=tp)[0]
 
 
 def mamba2_init_cache(p: Mamba2, batch: int, d_state: int, dtype=torch.bfloat16):
@@ -350,27 +445,29 @@ def mamba2_init_cache(p: Mamba2, batch: int, d_state: int, dtype=torch.bfloat16)
     }
 
 
-def mamba2_decode(p: Mamba2, cache, xt, *, d_state: int, head_dim: int = 64):
-    """One token. xt: (B, d_model) -> (cache', (B, d_model))."""
+def mamba2_decode(p: Mamba2, cache, xt, *, d_state: int, head_dim: int = 64, tp=None):
+    """One token. xt: (B, d_model) -> (cache', (B, d_model)).  With ``tp``
+    the conv window holds the rank's channels (:func:`mamba2_conv_part`)
+    and the SSM state its ``N`` slice of every head (B, H, P, N/n)."""
     DI = p.norm_w.shape[0]
-    H = p.A_log.shape[0]
+    H = DI // head_dim
     N = d_state
     B = xt.shape[0]
     dt_ = xt.dtype
-    zxbcdt = xt @ p.in_proj.to(dt_)
-    z = zxbcdt[..., :DI]
-    dt = zxbcdt[..., 2 * DI + 2 * N:]
-    conv_state, xbc = conv_step(cache["conv"], zxbcdt[..., DI:2 * DI + 2 * N],
-                                p.conv_w.to(dt_), p.conv_b.to(dt_))
+    z, xbc, dt, conv_w, conv_b = _mamba2_in(p, xt, N, head_dim, tp)
+    conv_state, xbc = conv_step(cache["conv"], xbc, conv_w, conv_b)
     xi, Bc, Cc = torch.split(F.silu(xbc), [DI, N, N], dim=-1)
-    dt = F.softplus(dt.to(torch.float32) + p.dt_bias)  # (B, H)
+    dt = F.softplus(_f32(dt) + p.dt_bias)  # (B, H)
+    # every head's x and dt, and B and C on the state's N slice
+    dt = parallel.gather_last(dt, tp)
     dA = torch.exp(dt * -torch.exp(p.A_log))  # (B, H)
-    xh = xi.reshape(B, H, head_dim)
-    dBx = (dt[..., None] * xh.to(torch.float32))[..., None] \
-        * Bc.to(torch.float32)[:, None, None, :]
+    xa = parallel.gather_last(xi, tp).reshape(B, -1, head_dim)
+    dBx = (dt[..., None] * _f32(xa))[..., None] \
+        * _f32(parallel.part_last(Bc, tp))[:, None, None, :]
     h = cache["ssm"] * dA[..., None, None] + dBx  # (B, H, P, N)
-    y = torch.einsum("bhpn,bn->bhp", h, Cc.to(torch.float32)).to(dt_)
-    y = y + xh * p.D[:, None].to(dt_)
-    y = rmsnorm(y.reshape(B, DI) * F.silu(z), p.norm_w.to(dt_))
-    return {"conv": conv_state, "ssm": h}, y @ p.out_proj.to(dt_)
+    y = torch.einsum("bhpn,bn->bhp", h, _f32(parallel.part_last(Cc, tp)))
+    y = parallel.scatter_last(y.flatten(1), tp).to(dt_).unflatten(1, (H, head_dim))
+    y = y + xi.reshape(B, H, head_dim) * p.D[:, None].to(dt_)
+    y = rmsnorm(y.reshape(B, DI) * F.silu(z), p.norm_w.to(dt_), tp=tp)
+    return {"conv": conv_state, "ssm": h}, parallel.reduce(y @ p.out_proj.to(dt_), tp)
 

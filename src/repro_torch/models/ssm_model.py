@@ -7,11 +7,20 @@ window and an SSM state per layer), with no KV cache.  As in
 reference stacks and scans; caches are written in place.
 
 Sharded (:mod:`~repro_torch.models.parallel`): each layer's parameters
-are gathered whole (over every axis, ``model`` too: this family computes
-no tensor-parallel part) inside its body, and each layer's states are
-gathered over ``model`` for the rank's rows, then its slice written back.
+are gathered over the FSDP axes inside its body, and where ``model`` has
+more than one rank the layer computes tensor-parallel on the rank's
+``d_inner`` slice (:func:`_tp_plan`, :func:`~repro_torch.models.ssm.
+mamba1_prefill`): prefill re-lays each layer's final state, ``(B,
+d_inner/n, N)`` a rank, into the ``N``-sharded cache of ``cache_specs``
+(one all-to-all), and decode updates the rank's ``N`` slice in place,
+its conv window the rank's ``d_inner`` slice; nothing of the cache is
+gathered.  Where the rules do not shard a leaf as that needs, the layer
+is gathered whole (over ``model`` too) and every rank computes it, one
+layer's states gathered over ``model`` at a time.
 """
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import torch
 from torch import nn
@@ -91,14 +100,43 @@ def init_params(cfg, seed: int = 0, *, device=None, dtype=None) -> SSMModel:
     return init_head(model, gen)
 
 
+_D_INNER = {"in_proj": -1, "x_proj": -1, "dt_proj": -1, "conv_b": -1, "dt_bias": -1, "D": -1,
+            "out_proj": -2, "conv_w": -2, "A_log": -2}  # where ``model`` splits each leaf
+
+
+def _tp_plan(lp: MambaLayer, *, serve: bool):
+    """How Mamba-1 layer ``lp`` (DTensor parameters) computes tensor-parallel
+    in the open sharded context: ``tp`` and the ``model`` modes of its
+    parameters, or None where it cannot (no context, one ``model`` rank,
+    a leaf that ``model`` does not split on the dim of :data:`_D_INNER`, or
+    in serving a conv window not split on ``d_inner`` or a state not split
+    on ``N``)."""
+    def make(s):
+        m = lp.mamba
+        modes = parallel.local_modes(s, {f"mamba.{k}": (getattr(m, k), d)
+                                         for k, d in _D_INNER.items()})
+        if modes is None or serve and (s.cache_dims.get("conv"), s.cache_dims.get("ssm")) \
+                != (-1, -1):
+            return None
+        return SimpleNamespace(tp=s.tp, modes=modes)
+
+    return parallel.plan(lp, serve, make)
+
+
+def _layer(lp: MambaLayer, *, serve: bool):
+    """(``lp``'s parameters as this rank computes with them, ``tp`` or None)."""
+    plan = _tp_plan(lp, serve=serve)
+    return parallel.layer(lp, plan and plan.modes), plan and plan.tp
+
+
 def forward(cfg, params: SSMModel, batch):
     """Full-sequence forward to the final hidden states (B, S, d)."""
     x = embed_tokens(cfg, params, batch["tokens"])
 
     def body(x, lp):
-        lp = parallel.layer(lp)
+        lp, tp = _layer(lp, serve=False)
         h = rmsnorm(x, lp.ln.to(x.dtype), cfg.rmsnorm_eps)
-        return x + ssm.mamba1(lp.mamba, h, d_state=cfg.ssm_state, chunk=cfg.ssm_chunk)
+        return x + ssm.mamba1(lp.mamba, h, d_state=cfg.ssm_state, chunk=cfg.ssm_chunk, tp=tp)
 
     body = remat(cfg, body)
     for lp in params.layers:
@@ -135,12 +173,15 @@ def prefill(cfg, params: SSMModel, batch, max_len: int):
     cache = parallel.new_cache(lambda dev: init_cache(cfg, B, max_len, device=dev),
                                params.device)
     for i, lp in enumerate(params.layers):
-        lp = parallel.layer(lp)
+        lp, tp = _layer(lp, serve=True)
         h = rmsnorm(x, lp.ln.to(x.dtype), cfg.rmsnorm_eps)
-        y, c = ssm.mamba1_prefill(lp.mamba, h, d_state=cfg.ssm_state, chunk=cfg.ssm_chunk)
+        y, c = ssm.mamba1_prefill(lp.mamba, h, d_state=cfg.ssm_state, chunk=cfg.ssm_chunk,
+                                  tp=tp)
         x = x + y
-        parallel.cache_store(cache, "conv", i, c["conv"])
-        parallel.cache_store(cache, "ssm", i, c["ssm"])
+        if tp is not None:  # the rank's d_inner slice; its state re-laid onto its N slice
+            c["ssm"] = parallel.reshard(c["ssm"], -2, -1, tp)
+        for k in ("conv", "ssm"):
+            parallel.cache_store(cache, k, i, c[k], part=tp is not None)
     cache["len"].fill_(S)
     x = final_norm(cfg, params, x)
     return cache, _logits(params, x[:, -1])
@@ -151,13 +192,14 @@ def decode_step(cfg, params: SSMModel, cache, tokens):
     states are written in place and every slot's clock advances."""
     xt = embed_tokens(cfg, params, tokens[:, 0])
     for i, lp in enumerate(params.layers):
-        lp = parallel.layer(lp)
+        lp, tp = _layer(lp, serve=True)
         h = rmsnorm(xt, lp.ln.to(xt.dtype), cfg.rmsnorm_eps)
-        state = {k: parallel.cache_layer(cache, k, i) for k in ("conv", "ssm")}
-        c, y = ssm.mamba1_decode(lp.mamba, state, h, d_state=cfg.ssm_state)
+        state = {k: cache[k][i] if tp else parallel.cache_layer(cache, k, i)
+                 for k in ("conv", "ssm")}
+        c, y = ssm.mamba1_decode(lp.mamba, state, h, d_state=cfg.ssm_state, tp=tp)
         xt = xt + y
-        parallel.cache_store(cache, "conv", i, c["conv"])
-        parallel.cache_store(cache, "ssm", i, c["ssm"])
+        for k in ("conv", "ssm"):
+            parallel.cache_store(cache, k, i, c[k], part=tp is not None)
     xt = final_norm(cfg, params, xt)
     return {"conv": cache["conv"], "ssm": cache["ssm"], "len": cache["len"] + 1}, \
         _logits(params, xt)

@@ -259,37 +259,33 @@ def layer_decode(cfg, lp: DecoderLayer, x, k_cache, v_cache, length, tp=None):
 # --------------------------------------------------------------------------
 
 
-def _tp_plan(cfg, lp: DecoderLayer, *, decode: bool):
+def _tp_plan(cfg, lp: DecoderLayer, *, decode: bool, kv=("k", "v")):
     """How layer ``lp`` (DTensor parameters) computes tensor-parallel in
     the open sharded context, or None where it cannot: no context, one
     ``model`` rank, fewer q heads than ranks, a projection that ``model``
     does not shard on its column (``wq wk wv w1 w3``, the biases) or row
-    (``wo w2``) dim, or in decode a KV cache whose ``head_dim`` it does not
-    shard.  The layer then runs every head on every rank, its weights
-    gathered over ``model`` too."""
-    s = parallel.current()
-    if s is None or s.tp is None:
-        return None
-    key = (id(lp), decode)
-    if key not in s.plans:
-        s.plans[key] = _make_tp_plan(cfg, lp, s, decode)
-    return s.plans[key]
+    (``wo w2``, the hybrid shared block's ``down``) dim, or in decode a KV
+    cache (leaves ``kv``) whose ``head_dim`` it does not shard.  The layer
+    then runs every head on every rank, its weights gathered over
+    ``model`` too."""
+    return parallel.plan(lp, decode, lambda s: _make_tp_plan(cfg, lp, s, decode, kv))
 
 
-def _make_tp_plan(cfg, lp, s, decode: bool):
+def _make_tp_plan(cfg, lp, s, decode: bool, kv):
     a = lp.attn
     pre = "moe" if cfg.family == "moe" else "mlp"
     ffn = getattr(lp, pre)
-    col = {f"attn.{n}": getattr(a, n) for n in ("wq", "wk", "wv", "bq", "bk", "bv")
-           if hasattr(a, n)}
-    col.update({f"{pre}.w1": ffn.w1, f"{pre}.w3": ffn.w3})
-    row = {"attn.wo": a.wo, f"{pre}.w2": ffn.w2}
-    if cfg.n_heads < s.nm or any(s.model_dim(p) != -1 for p in col.values()) \
-            or any(s.model_dim(p) != -2 for p in row.values()):
+    want = {f"attn.{n}": (getattr(a, n), -1) for n in ("wq", "wk", "wv", "bq", "bk", "bv")
+            if hasattr(a, n)}
+    want.update({f"{pre}.w1": (ffn.w1, -1), f"{pre}.w3": (ffn.w3, -1),
+                 "attn.wo": (a.wo, -2), f"{pre}.w2": (ffn.w2, -2)})
+    if hasattr(lp, "down"):
+        want["down"] = (lp.down, -2)
+    modes = parallel.local_modes(s, want)
+    if cfg.n_heads < s.nm or modes is None:
         return None
-    if decode and any(s.cache_dims.get(k) != -1 for k in ("k", "v")):
+    if decode and any(s.cache_dims.get(k) != -1 for k in kv):
         return None
-    modes = dict.fromkeys([*col, *row], "local")
     # replicated over ``model`` and used on the rank's part only
     modes.update({"attn.q_norm": "sum", "attn.k_norm": "sum", "moe.router": "sum"})
     whole = cfg.n_heads % s.nm == 0

@@ -17,9 +17,11 @@ each rank's argument bytes of the full-size ``train_4k`` state of
 qwen3-0.6b and olmoe-1b-7b on them, held against the reference's
 ``state_specs`` on ``AbstractMesh``; the collective bytes of a SMOKE
 train step on a fake ``(2, 2)`` mesh (per-layer gathers, tensor
-parallelism over ``model``), held against their sum over the reference's
-specs; and the per-rank bytes of that step and of a SMOKE prefill and
-decode, held below what the whole-model gather held.
+parallelism over ``model``) of qwen3-0.6b and falcon-mamba-7b, held
+against their sum over the reference's specs; and the per-rank bytes of
+that step and of a SMOKE prefill and decode, of qwen3-0.6b and of the
+SSM, hybrid and enc-dec families, held below what each held when it
+gathered its weights whole.
 """
 import dataclasses
 import io
@@ -44,9 +46,21 @@ S_TRAIN = 64  # the fake (2, 2) train step's sequence
 #: every weight (and the decode cache, over ``model``) was gathered whole
 SMOKE_CELLS = {"train": (S_TRAIN, B), "prefill": (256, B), "decode": (256, 8)}
 WHOLE_GATHER_BYTES = {"train": 6_409_732, "prefill": 2_774_528, "decode": 2_015_312}
+#: the same cells of the SSM, hybrid and enc-dec families (2 microbatches)
+#: as the tree traced them that gathered each of their layers whole over
+#: ``model`` (and the decode cache one layer at a time), with per-layer
+#: gathers over ``data`` and no tensor parallelism
+LAYER_GATHER_BYTES = {
+    "falcon-mamba-7b": {"train": 3_195_140, "prefill": 7_872_000, "decode": 296_016},
+    "zamba2-7b": {"train": 2_480_420, "prefill": 3_577_768, "decode": 802_744},
+    "seamless-m4t-medium": {"train": 1_401_732, "prefill": 1_188_864, "decode": 1_036_880},
+}
+GATHER_BYTES = {"qwen3-0.6b": WHOLE_GATHER_BYTES, **LAYER_GATHER_BYTES}
 FAKE_TIMEOUT_S = 240
 STATE_ARCHS = ("qwen3-0.6b", "olmoe-1b-7b")
 SMOKE_MESH = {"data": 2, "model": 2}
+#: the train cell's microbatches for the families whose own are 8: one row each
+SMOKE_MICROBATCHES = 2
 
 
 # --------------------------------------------------------------------------
@@ -58,7 +72,10 @@ def _smoke_overrides(arch) -> dict:
     from repro_torch.configs import get_config
 
     smoke = get_config(arch, smoke=True)
-    return {f.name: getattr(smoke, f.name) for f in dataclasses.fields(smoke)}
+    out = {f.name: getattr(smoke, f.name) for f in dataclasses.fields(smoke)}
+    if arch in LAYER_GATHER_BYTES:
+        out["train_microbatches"] = SMOKE_MICROBATCHES
+    return out
 
 
 def _fake_main() -> dict:
@@ -88,14 +105,10 @@ def _fake_main() -> dict:
     mesh_lib.make_fake_group(4)
     mesh = init_device_mesh("cpu", tuple(SMOKE_MESH.values()),
                            mesh_dim_names=tuple(SMOKE_MESH))
-    rec = dryrun.run_cell("qwen3-0.6b", ShapeSpec("train_smoke", *SMOKE_CELLS["train"], "train"),
-                          mesh=mesh, device="cpu", overrides=_smoke_overrides("qwen3-0.6b"),
-                          verbose=False)
-    out["smoke_train"] = rec
-    out["smoke_serve"] = {
-        kind: dryrun.run_cell("qwen3-0.6b", ShapeSpec(f"{kind}_smoke", *SMOKE_CELLS[kind], kind),
-                              mesh=mesh, device="cpu", overrides=_smoke_overrides("qwen3-0.6b"),
-                              verbose=False) for kind in ("prefill", "decode")}
+    out["smoke"] = {arch: {
+        kind: dryrun.run_cell(arch, ShapeSpec(f"{kind}_smoke", *SMOKE_CELLS[kind], kind),
+                              mesh=mesh, device="cpu", overrides=_smoke_overrides(arch),
+                              verbose=False) for kind in SMOKE_CELLS} for arch in GATHER_BYTES}
     sort = dryrun.run_cell("olmoe-1b-7b", ShapeSpec("train_smoke", S_TRAIN, B, "train"), mesh=mesh,
                            device="cpu", verbose=False,
                            overrides={**_smoke_overrides("olmoe-1b-7b"), "moe_impl": "sort"})
@@ -405,18 +418,25 @@ def _analytic_collectives(jcfg) -> dict:
     that ``data`` shards is gathered over ``data`` (whole along ``data``,
     the rank's block along ``model``: the full bytes over ``model``, less
     the local), a layer's twice (its remat recomputes it), and its
-    gradient reduce-scattered back (the same bytes); a replicated weight's
-    gradient is all-reduced over ``data`` (2·|p|·(n−1)/n), and over
-    ``model`` too for the q and k norms (each rank normalizes its own
-    heads).  The activations' all-reduces over ``model``, (rows, S, d) in
-    the compute dtype: per layer two in the backward (the gradients
-    entering attention and the FFN) and two partial sums in the forward,
-    one more in the recompute (the checkpoint stops before the FFN's);
-    the cross-entropy's input gradient; the vocabulary-parallel lookup's
-    rows in float32 (the master table's); the cross-entropy's row max,
-    sum of exponentials and target logit per chunk, float32.  Then the
-    loss over ``data``, and the gradient norm's local sums over each mesh
-    dim that shards them, one stack per placement pattern."""
+    gradient reduce-scattered back (the same bytes); the gradient of a
+    weight that ``data`` does not shard is all-reduced over ``data``
+    (2·|p|·(n−1)/n of the rank's block), and over ``model`` too for the q
+    and k norms (each rank normalizes its own heads).  The activations'
+    all-reduces over ``model``, in the compute dtype, per layer: in the
+    transformer, (rows, S, d) two in the backward (the gradients entering
+    attention and the FFN) and two partial sums in the forward, one more
+    in the recompute (the checkpoint stops before the FFN's); in Mamba-1,
+    ``out_proj``'s partial sums in the forward and the gradient entering
+    ``in_proj`` in the backward, (rows, S, d), and ``x_proj``'s partial
+    sums (rows, S, dt_rank + 2N) in the forward, its recompute and, as a
+    gradient, the backward.  Then the cross-entropy's input gradient; the
+    vocabulary-parallel lookup's rows in float32 (the master table's);
+    the cross-entropy's row max, sum of exponentials and target logit per
+    chunk, float32; the loss over ``data``, and the gradient norm's local
+    sums over each mesh dim that shards them, one stack per placement
+    pattern.  Mamba-1's all-to-alls, ``|in|·(n−1)/n`` each: ``in_proj``'s
+    and ``x_proj``'s blocks re-laid in the compute dtype, in the forward,
+    the recompute and the backward."""
     axes, sizes = tuple(SMOKE_MESH), tuple(SMOKE_MESH.values())
     mesh = AbstractMesh(sizes, axes)
     state = jax.eval_shape(lambda: jts.init_state(jcfg, jax.random.PRNGKey(0),
@@ -441,15 +461,22 @@ def _analytic_collectives(jcfg) -> dict:
             out["reduce-scatter"] += mb * layers * link
         else:
             norm = str(path[-1]) in ("['q_norm']", "['k_norm']")
-            out["all-reduce"] += mb * layers * 2 * one * (nd - 1) / nd * (2 if norm else 1)
+            block = one // nm if "model" in used else one
+            out["all-reduce"] += mb * layers * 2 * block * (nd - 1) / nd * (2 if norm else 1)
         if used:  # one gradient-norm sum per layer of the stacked leaf
             key = tuple(a in used for a in axes)
             groups[key] = groups.get(key, 0) + layers
     rows, d = B // nd // mb, jcfg.d_model
-    act = rows * S_TRAIN * d * jnp.dtype(jcfg.dtype).itemsize
+    item = jnp.dtype(jcfg.dtype).itemsize
+    act = rows * S_TRAIN * d * item
     chunks = S_TRAIN // jcfg.ce_chunk
     ar = 2 * (nm - 1) / nm
-    out["all-reduce"] += mb * ar * ((5 * L + 1) * act + rows * S_TRAIN * d * 4
+    layer = 5 * act
+    if jcfg.family == "ssm":
+        di, xw = jcfg.ssm_expand * d, d // 16 + 2 * jcfg.ssm_state  # d_inner, x_proj's width
+        layer = 2 * act + 3 * rows * S_TRAIN * xw * item
+        out["all-to-all"] = mb * L * 3 * (d * 2 * di + di * xw) // nm * item * (nm - 1) / nm
+    out["all-reduce"] += mb * ar * (L * layer + act + rows * S_TRAIN * d * 4
                                     + chunks * 3 * rows * jcfg.ce_chunk * 4)
     out["all-reduce"] += 2 * 4 * (nd - 1) / nd  # the loss
     for key, count in groups.items():
@@ -459,26 +486,31 @@ def _analytic_collectives(jcfg) -> dict:
     return out
 
 
-def test_smoke_step_collective_bytes_are_the_analytic_sum(fake):
-    rec = fake["smoke_train"]
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "falcon-mamba-7b"])
+def test_smoke_step_collective_bytes_are_the_analytic_sum(fake, arch):
+    rec = fake["smoke"][arch]["train"]
     assert rec["status"] == "ok" and rec["dtensor_ops"] == 0
-    want = _analytic_collectives(jget_config("qwen3-0.6b", smoke=True))
+    overrides = {"train_microbatches": SMOKE_MICROBATCHES} if arch in LAYER_GATHER_BYTES else {}
+    want = _analytic_collectives(jget_config(arch, smoke=True, **overrides))
     assert rec["coll_by_kind_bytes"] == want
     assert rec["roofline"]["coll_bytes"] == sum(want.values()) * rec["chips"]
 
 
 @pytest.mark.parametrize("kind", list(SMOKE_CELLS))
-def test_smoke_cells_hold_less_per_rank_than_whole_gathers(fake, kind):
+@pytest.mark.parametrize("arch", list(GATHER_BYTES))
+def test_smoke_cells_hold_less_per_rank_than_whole_gathers(fake, arch, kind):
     """Per-layer gathers and tensor parallelism: each reduced cell on the
-    fake (2, 2) mesh holds less per rank than the whole-model gather did,
-    with no DTensor op."""
-    rec = fake["smoke_train"] if kind == "train" else fake["smoke_serve"][kind]
+    fake (2, 2) mesh holds less per rank than it did with its weights
+    gathered whole (qwen3-0.6b: the whole model at once; the SSM, hybrid
+    and enc-dec families: each layer whole over ``model``), with no
+    DTensor op."""
+    rec = fake["smoke"][arch][kind]
     assert rec["status"] == "ok" and rec["dtensor_ops"] == 0
-    assert rec["per_chip_bytes"] < WHOLE_GATHER_BYTES[kind]
+    assert rec["per_chip_bytes"] < GATHER_BYTES[arch][kind]
 
 
 def test_smoke_record_has_the_reference_keys(fake):
-    rec = fake["smoke_train"]
+    rec = fake["smoke"]["qwen3-0.6b"]["train"]
     want = {"arch", "shape", "mesh", "chips", "status", "per_chip_bytes", "per_chip_gb",
             "arg_gb", "temp_gb", "xla_flops_per_chip", "roofline"}  # less lower_s, compile_s
     assert want | {"trace_s"} <= set(rec) and "tpu_projected_gb" not in rec

@@ -211,6 +211,44 @@ def test_cold_tick_matches_oracle(runs):
         assert got == ref_engine.eval_bsgf(setdb, T_TENANTS[t][0])
 
 
+def _chip_smoke():
+    """The repository root's ``chip_smoke.py`` as a module (importing it
+    runs nothing)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("t", range(4))
+def test_chip_smoke_indexed_oracle_is_ref_engine(t):
+    """``chip_smoke.py``'s service oracle (an index per condition atom) is
+    set-equal to ``ref_engine`` on each tenant's query over this file's
+    catalog, and on two more over it with ``R`` given rows that repeat a
+    value: a guard with a constant and a repeated variable, and one whose
+    condition has an ``OR``, a ``NOT`` and a variable the guard binds
+    that the output drops."""
+    from repro_torch.core.algebra import And, Not, Or
+
+    db = _db_np()
+    setdb = {k: {tuple(map(int, r)) for r in v} for k, v in db.items()}
+    indexed = _chip_smoke().indexed_bsgf
+    want = ref_engine.eval_bsgf(setdb, T_TENANTS[t][0])
+    assert want and indexed(setdb, T_TENANTS[t][0]) == want
+    rows = {tuple(map(int, r)) for r in db["R"][:64]}
+    setdb["R"] = rows | {(a, 3, a, b) for a, _, b, _ in rows} | {(a, 3, b, a) for a, *_, b in rows}
+    u = Atom("STUV"[t], "b")
+    for q in (BSGF("Out", ("a",), Atom("R", "a", 3, "a", "b"), Atom("STUV"[t], "a")),
+              BSGF("Out", ("a", "b"), Atom("R", "a", "b", "a", "c"),
+                   And(Or(u, Atom("S", "c")), Not(Atom("T", "a"))))):
+        want = ref_engine.eval_bsgf(setdb, q)
+        assert want and indexed(setdb, q) == want
+
+
 def _batches():
     """Query batches for the fingerprint and canonical-form comparison."""
     fams = ["A1", "A3", "A5", "B1", "C2"]
