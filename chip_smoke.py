@@ -4,7 +4,12 @@
     python3 chip_smoke.py [--seed 0] [--log2-rows 25] [--compare-with TREE]
     python3 chip_smoke.py --mesh-tp-only [PORT_SRC]
 
-Phases, one JSON line each; any failure raises and the exit code is not 0:
+Phases, one JSON line each; any failure raises and the exit code is not 0.
+The numpy draws of the ``e2e`` databases run on a host thread beside the
+build; those of the ``executor`` phase's database, the training corpus
+with its oracle and the ``mesh`` phase's relations on host threads beside
+the ``executor`` phase's first two parts, which wait for them before
+``speculate`` (``in_background``):
 
 1. ``device``  — the card's name and ``nvidia-smi`` name / power limit.
 2. ``build``   — every CUDA source compiled with ``nvcc`` for ``sm_90a``
@@ -57,7 +62,38 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    torch sort-merge probe (``msj.probe_sorted``), which shares no code
    with the hash join.
    (Cut to 2**20: its plain version is O(rows**2) per shard.)
-7. ``service`` — the SGF query service (``repro_torch.service``) on a
+7. ``executor`` — the executor's scheduling modes and fault tolerance,
+   every MSJ job on ``probe_backend="auto"`` (each must run the hash join),
+   the launch counters set to 0 before each run and read after; one line
+   per part with its seconds, probe launches and peak (parts ``edges``,
+   ``isolate`` and ``shrink`` read one database of their base relations,
+   drawn on the host while ``waves`` runs).  ``waves``: the
+   GREEDY plan on the GREEDY phase's database as barrier waves (unbounded,
+   then two slots) and as the async walk on two slots, outputs and every
+   job's counters equal to the ``e2e`` ``greedy`` run's.  ``edges``: C4
+   planned ``parunit`` at 2**22 rows per relation on two slots under
+   relation edges, strata edges, and relation edges on the sort-merge
+   probe, bit-identical.  ``speculate``: the reference's fused star (six
+   arity-4 guards, one unary ``S``) at 2**22 rows on two slots of a
+   ``SlotScheduler``, after a warm run; the last job's first attempt
+   straggles 30x (``wall_scale``): with speculation exactly one clone,
+   and it wins, on real walls (each deadline printed, and the largest
+   wall over its deadline of a job that does not straggle), a smaller
+   makespan, outputs equal to the run without speculation and to the
+   sort-merge run, the probe launched once more per clone; a clone that
+   dies falls back to the original; a forced overflow with ``cap_slack``
+   0.5 relaxes the shared retry state once (sizes ``(None, None)``, ``(None,
+   1.0)``, ``(None, 1.0)``) and leaves the ``ExecutorConfig`` as it was.
+   ``isolate``: the reference's three poison tenants (one guarding on
+   ``PG``) in one 1-ROUND plan at 2**22 rows under ``fail_policy="isolate"``
+   with every job reading ``PG`` failing: the failed units and tainted
+   relations equal those of the same plan run on the CPU at 2**8 rows, the
+   untainted outputs equal the fault-free run's.  ``shrink``: A4 planned
+   PAR at 2**22 rows on two slots with ``shrink_on_shard_loss``, shard 0
+   of the first job's first lineage relation lost once: one recovery, the
+   later dispatches on slot 0, outputs equal the fault-free run's, the
+   recovered relation equal to its lineage source.
+8. ``service`` — the SGF query service (``repro_torch.service``) on a
    catalog resident on the card: the four tenants of the reference's
    service bench (guards R, G, H of arity 4, unary S, T, U, V) at
    2**21 rows per relation (at most 2**(log2-rows - 3)), P=16.  Ticks, one line
@@ -79,10 +115,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    (``bloom_bits`` = one bit per row).  Every cold tick's MSJ jobs must
    run the probe kernel.  Then one tick at 2**12 rows set-equal to
    ``ref_engine`` (its line times the tick and the oracle apart).
-8. ``oracle``  — the quickstart query on the card under PAR / GREEDY /
+9. ``oracle``  — the quickstart query on the card under PAR / GREEDY /
    1-ROUND, and 1-ROUND with the bloom prefilter, set-equal to the
    set-semantics oracle ``ref_engine``.
-9. ``lm_serve`` — the model zoo's serving path (``repro_torch.models``,
+10. ``lm_serve`` — the model zoo's serving path (``repro_torch.models``,
    ``repro_torch.serve``), once per family at its published size, random
    weights from ``--seed`` (``LM_SERVE``): qwen3-0.6b (dense),
    olmoe-1b-7b (MoE, 64 experts top-8), falcon-mamba-7b (Mamba-1) and
@@ -120,7 +156,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    bytes (weights, valid self K/V, the enc-dec's cross K/V), with a
    profiler summary of three decode steps.  No kernel of the repo is on
    these paths: the launch counters, set to 0 before each family, stay 0.
-10. ``train``  — the training path.  ``pipeline``: the reference's Keep
+11. ``train``  — the training path.  ``pipeline``: the reference's Keep
    query (three negated semi-joins and one positive) over a 2**24-document
    crawl shard (``data.synthetic.corpus_relations``), P=16, 1-ROUND,
    through ``data.pipeline.filter_corpus`` on the card with every launch
@@ -138,7 +174,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    ``run_train_loop`` crashed at step 3 (checkpoints every 2 steps into a
    temporary directory, removed after), resumed: the loaded state bit for
    bit the saved one, resumed losses within 1e-3 of an uninterrupted run.
-11. ``mesh``   — the multi-card layer (``repro_torch.launch.mesh``,
+12. ``mesh``   — the multi-card layer (``repro_torch.launch.mesh``,
    ``engine.comm.MeshComm``, the sharding rules, sharded train state,
    reshard-on-load).  One card: NCCL at world size 1, and four gloo ranks
    sharing the card (NCCL refuses two ranks on one device; gloo stages card
@@ -189,7 +225,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    port, printing each rank's peak: so ``MESH_TP_TRAIN_LAYER_GATHER_PEAK``
    was read on the parent tree's port.
 
-12. ``dryrun`` — the multi-pod dry-run (``repro_torch.launch.dryrun``,
+13. ``dryrun`` — the multi-pod dry-run (``repro_torch.launch.dryrun``,
    ``launch.opcost``, ``launch.roofline``) held to real steps.  Two spawned
    processes trace, each as rank 0 of a fake process group on a fake
    (1, 1) mesh, qwen3-0.6b's train step at the ``train`` batch (8 × 4096,
@@ -206,8 +242,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    and (2, 16, 16) on fake groups of 256 and 512 ranks; each record is
    printed.  No kernel of the repo is on these paths.
 
-Then a ``kernels`` JSON line (``launches`` count the pipeline's and the
-mesh ranks' too), the
+Then a ``kernels`` JSON line (``launches`` count the executor phase's,
+the pipeline's and the mesh ranks' too), the
 raw ``nvidia-smi`` name/power line, and as the last line ``{"ok": true,
 "device": {...}}``.  Without a CUDA device it exits 1 before printing any
 result.
@@ -605,15 +641,20 @@ def msj_stat(report, key) -> list:
     return [r.stats.get(key) for r in report.records if isinstance(r.job, MSJJob)]
 
 
-def check_path_kernels(name, report, launches, bloom) -> list:
-    """Every MSJ job of ``report`` ran the probe kernel, every kernel of the
-    path (the bloom kernels too with ``bloom``) launched, and the probe
-    wrapper's count is its two kernels'.  Returns the MSJ jobs' backends."""
+def check_path_kernels(name, report, launches, bloom=False, backend="kernel") -> list:
+    """Every MSJ job of ``report`` that ran (an original or a speculative
+    clone, won or cancelled; not a failed or tainted unit) ran ``backend``;
+    on the kernel, every kernel of the path (the bloom kernels too with
+    ``bloom``) launched, and the probe wrapper's count is its two kernels'.
+    Returns the MSJ jobs' backends."""
     from repro_torch.core.planner import MSJJob
 
-    backends = [r.backend for r in report.records if isinstance(r.job, MSJJob)]
-    if not backends or any(b != "kernel" for b in backends):
-        raise AssertionError(f"{name}: MSJ jobs ran {backends}, not the kernel")
+    backends = [r.backend for r in report.records
+                if isinstance(r.job, MSJJob) and r.outcome in ("ok", "cancelled")]
+    if not backends or any(b != backend for b in backends):
+        raise AssertionError(f"{name}: MSJ jobs ran {backends}, not {backend}")
+    if backend != "kernel":
+        return backends
     idle = [k for k in ("probe_bucketed", "table_build", "table_probe")
             + (("bloom_build", "bloom_pack", "bloom_probe") if bloom else ())
             if launches[k] <= 0]
@@ -623,7 +664,7 @@ def check_path_kernels(name, report, launches, bloom) -> list:
     return backends
 
 
-def phase_e2e(name, db, plan, P, rows, bloom_bits=0) -> dict:
+def phase_e2e(name, db, plan, P, rows, bloom_bits=0, keep=None) -> dict:
     import torch
 
     from repro_torch.core.planner import job_writes
@@ -661,6 +702,8 @@ def phase_e2e(name, db, plan, P, rows, bloom_bits=0) -> dict:
                    "sent_fwd_no_bloom": msj_stat(rep_0, "sent_fwd")}
         del env_0
     out_rows = {k: int(env_a[k].count()) for k in outputs}
+    if keep is not None:  # the executor phase holds its runs to this one
+        keep.update(env={k: env_a[k] for k in outputs}, stats=stats_by_job(rep_a))
     del env_a
     from repro_torch.obs.tracer import Tracer
 
@@ -1101,6 +1144,475 @@ def phase_blocked(db, sjs, P, rows):
               "peak_mem_bytes": peak, "stats": stats, "bit_identical": True}
     emit(result)
     return timing, result
+
+
+# --------------------------------------------------------------------------
+# phase: the executor's fault-tolerant scheduling
+# --------------------------------------------------------------------------
+
+EXECUTOR_LOG2_ROWS = 22  # rows per relation of the executor phase's parts (b)-(e)
+EXECUTOR_ORACLE_ROWS = 2**8  # rows per relation of part (d)'s plan run on the CPU
+STRAGGLE = 30.0  # wall scale of the injected straggler's first attempt
+XYZW = ("x", "y", "z", "w")
+
+
+def in_background(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, started now on a host thread of its own
+    (numpy draws and set operations, which release the GIL while they
+    run); the returned future's ``result()`` waits for it."""
+    pool = ThreadPoolExecutor(max_workers=1)
+    try:
+        return pool.submit(fn, *args, **kwargs)
+    finally:
+        pool.shutdown(wait=False)
+
+
+def measured(fn):
+    """``fn()`` with every launch counter from 0 and the peak reset:
+    ``(result, {"seconds", "launches", "peak_mem_bytes"})``."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"seconds": time.perf_counter() - t0, "launches": read_counts(),
+                 "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def stats_by_job(report) -> dict:
+    """Each completed job's counters, by job (the async walk orders jobs by
+    measured walls, the waves by modeled cost)."""
+    return {repr(r.job): r.stats for r in report.records if r.outcome == "ok"}
+
+
+def check_timeline(name, plan, log, slots, edges="relations") -> None:
+    """No dispatch starts before its predecessors end (under the DAG of
+    ``edges``), and at most ``slots`` slots are used."""
+    from repro_torch.core.planner import job_dag
+
+    by_idx = {s.idx: s for s in log if s.attempt == 0}
+    for n in job_dag(plan, edges):
+        late = [d for d in n.deps if by_idx[d].end > by_idx[n.idx].start]
+        if late:
+            raise AssertionError(f"{name}: job {n.idx} starts before {late} end")
+    if slots is not None and len({s.slot for s in log}) > slots:
+        raise AssertionError(f"{name}: {len({s.slot for s in log})} slots used, {slots} allowed")
+
+
+def plan_outputs(plan) -> list:
+    from repro_torch.core.planner import job_writes
+
+    return sorted(set().union(*(job_writes(j) for r in plan.rounds for j in r.jobs)))
+
+
+def executor_waves(gdb, plan, P, greedy) -> dict:
+    """(a) The GREEDY plan as barrier waves (unbounded, then two slots) and
+    as the async walk on two slots: outputs and every job's counters equal
+    to the ``e2e`` ``greedy`` run's (the async walk, unbounded)."""
+    from repro_torch.core.executor import Executor, ExecutorConfig
+    from repro_torch.engine.comm import SimComm
+
+    runs = {}
+    for label, mode, slots in (("waves", "waves", None), ("waves_2", "waves", 2),
+                               ("async_2", "async", 2)):
+        name = f"executor waves {label}"
+        ex = Executor(dict(gdb), SimComm(P), ExecutorConfig(execution_mode=mode))
+        (env, rep), run = measured(lambda: ex.execute(plan, slots=slots))
+        check_path_kernels(name, rep, run["launches"])
+        check_timeline(name, plan, ex.schedule, slots)
+        same_outputs(greedy["env"], env, sorted(greedy["env"]), f"the e2e greedy run and {name}")
+        if stats_by_job(rep) != greedy["stats"]:
+            raise AssertionError(f"{name}: job counters differ from the e2e greedy run")
+        if slots is None and mode == "waves":
+            starts = {}
+            for r in rep.records:
+                starts.setdefault(r.round_idx, set()).add(r.start)
+            if any(len(s) != 1 for s in starts.values()):
+                raise AssertionError(f"{name}: a round's jobs do not start at one barrier")
+        runs[label] = {**run, "jobs": rep.n_jobs, "slots_used": len({s.slot for s in ex.schedule}),
+                       "makespan_s": rep.event_makespan()}
+        del env, rep, ex
+    return {"part": "waves", "plan": "greedy", "runs": runs}
+
+
+def executor_db(P, seed, rows) -> dict:
+    """One database for parts (b), (d) and (e), drawn and placed in shards
+    on the host (on a thread of its own, beside part (a)): the base
+    relations of C4, A4 and the three poison tenants."""
+    from repro_torch.core import queries
+    from repro_torch.core.relation import db_from_dict
+
+    qs = (list(queries.make_sgf("C4").queries) + queries.make_queries("A4")
+          + poison_tenants())
+    return db_from_dict(queries.gen_db(qs, n_guard=rows, n_cond=rows, seed=seed), P=P,
+                        device="cpu")
+
+
+def executor_edges(db, P) -> dict:
+    """(b) C4 planned ``parunit``: relation edges, strata edges, and relation
+    edges on the sort-merge probe (a control sharing no code with the hash
+    join), two slots each, bit-identical."""
+    from repro_torch.core import queries
+    from repro_torch.core.executor import Executor, ExecutorConfig
+    from repro_torch.core.planner import plan_sgf
+    from repro_torch.engine.comm import SimComm
+
+    sgf = queries.make_sgf("C4")
+    plan = plan_sgf(sgf, "parunit")
+    names = plan_outputs(plan)
+    runs, base = {}, None
+    for label, edges, backend in (("relations", "relations", "auto"),
+                                  ("strata", "strata", "auto"),
+                                  ("relations_sorted", "relations", "sorted")):
+        name = f"executor edges {label}"
+        ex = Executor(dict(db), SimComm(P), ExecutorConfig(dag_edges=edges, probe_backend=backend))
+        (env, rep), run = measured(lambda: ex.execute(plan, slots=2))
+        check_path_kernels(name, rep, run["launches"],
+                           backend="kernel" if backend == "auto" else backend)
+        check_timeline(name, plan, ex.schedule, 2, edges)
+        if base is None:
+            base = ({k: env[k] for k in names}, stats_by_job(rep))
+        else:
+            same_outputs(base[0], env, names, f"executor edges relations and {label}")
+            if stats_by_job(rep) != base[1]:
+                raise AssertionError(f"{name}: job counters differ from the relations run")
+        runs[label] = {**run, "jobs": rep.n_jobs, "makespan_s": rep.event_makespan()}
+        del env, rep, ex
+    return {"part": "edges", "plan": "C4 parunit", "runs": runs,
+            "output_rows": {k: int(base[0][k].count()) for k in names}}
+
+
+def star_scenario(n_rows, seed, n_jobs=6):
+    """The reference's ``_fused_star_scenario`` (``tests/test_speculation.py``)
+    at ``n_rows`` rows per relation: one round of ``n_jobs`` fused
+    one-equation MSJ jobs over distinct arity-4 guards, each semi-joined
+    with one unary ``S``; values drawn from ``[0, n_rows / 2)``, as the
+    reference's 128 rows from ``[0, 64)``."""
+    import numpy as np
+
+    from repro_torch.core.algebra import BSGF, Atom, all_of
+    from repro_torch.core.planner import MSJJob, Plan, Round, pooled_semijoins
+
+    rng = np.random.default_rng(seed)
+    hi = max(n_rows // 2, 1)
+    qs, db_np = [], {}
+    for i in range(n_jobs):
+        qs.append(BSGF(f"Z{i}", XYZW, Atom(f"G{i}", *XYZW), all_of(Atom("S", "x"))))
+        db_np[f"G{i}"] = rng.integers(0, hi, (n_rows, 4)).astype(np.int32)
+    db_np["S"] = rng.integers(0, hi, (n_rows, 1)).astype(np.int32)
+    jobs = [MSJJob(tuple(pooled_semijoins([q])[0]), fused=(q,)) for q in qs]
+    return qs, db_np, Plan((Round(tuple(jobs)),)), jobs
+
+
+class DeadlineLog:
+    """Records every speculation deadline the executor computes (the
+    calibration's median ratio, the job's modeled cost, the deadline), by
+    wrapping ``costmodel.speculation_deadline`` where the executor calls it."""
+
+    def __init__(self):
+        import repro_torch.core.executor as executor
+
+        self.module, self.rows = executor, []
+
+    def __enter__(self):
+        wrapped = self.module.speculation_deadline
+
+        def deadline(est_cost, *, scale, factor, slots):
+            out = wrapped(est_cost, scale=scale, factor=factor, slots=slots)
+            self.rows.append({"est": est_cost, "scale": scale,
+                              "deadline_s": None if math.isinf(out) else out})
+            return out
+
+        self.wrapped = wrapped
+        self.module.speculation_deadline = deadline
+        return self
+
+    def __exit__(self, *exc):
+        self.module.speculation_deadline = self.wrapped
+
+
+def wall_over_deadline(name, report, deadlines, straggler) -> dict:
+    """Each original attempt's wall over the deadline the executor computed
+    for it (one deadline per completed original, in the order of the
+    records; a clone has none, and the first job of a run an unbounded
+    one): the largest ratio among the jobs that do not straggle, and the
+    straggler's (``straggler``: its job, or None)."""
+    originals = [r for r in report.records if not r.speculative]
+    if len(originals) != len(deadlines):
+        raise AssertionError(f"{name}: {len(originals)} original attempts, "
+                             f"{len(deadlines)} deadlines")
+    others, mine = [], None
+    for r, d in zip(originals, deadlines):
+        if d["deadline_s"] is None:
+            continue
+        if r.job is straggler:
+            mine = r.wall / d["deadline_s"]
+        else:
+            others.append(r.wall / d["deadline_s"])
+    return {"max_other": max(others, default=None), "straggler": mine}
+
+
+def executor_speculate(P, seed, rows) -> dict:
+    """(c) Speculative re-dispatch on real walls: the star's last job
+    straggles 30x on its first attempt, two slots."""
+    from repro_torch.core.costmodel import stats_of_db
+    from repro_torch.core.executor import Executor, ExecutorConfig, TransientFault
+    from repro_torch.core.relation import db_from_dict
+    from repro_torch.engine.comm import SimComm
+    from repro_torch.service.scheduler import SlotScheduler
+
+    qs, db_np, plan, jobs = star_scenario(rows, seed)
+    db = db_from_dict(db_np, P=P)
+    stats = stats_of_db(db)
+    target, names = jobs[-1], [q.name for q in qs]
+
+    def straggle(job, attempt):
+        return STRAGGLE if job is target and attempt == 0 else 1.0
+
+    def run_with(label, config, *, executor=Executor, on_job=None, wall_scale=straggle):
+        name = f"executor speculate {label}"
+        ex = executor(dict(db), SimComm(P), config)
+        sched = SlotScheduler(ex, slots=2, stats=stats)
+        with DeadlineLog() as log:
+            (env, rep), run = measured(
+                lambda: sched.execute(plan, on_job=on_job, wall_scale=wall_scale))
+        check_path_kernels(name, rep, run["launches"], backend=(
+            "kernel" if config.probe_backend == "auto" else config.probe_backend))
+        run.update(jobs=rep.n_jobs, n_speculative=rep.n_speculative,
+                   makespan_s=rep.event_makespan(),
+                   wall_over_deadline=wall_over_deadline(
+                       name, rep, log.rows, target if wall_scale is straggle else None),
+                   records=[{"job": names[jobs.index(r.job)], "slot": r.slot, "start": r.start,
+                             "wall": r.wall, "attempt": r.attempt, "outcome": r.outcome}
+                            for r in rep.records],
+                   deadlines=log.rows)
+        return env, rep, ex, run
+
+    # the first run builds nothing (the kernels are built) but warms the
+    # allocator and the host paths, so no later wall carries a warm-up
+    _, _, _, warm = run_with("warm", ExecutorConfig(), wall_scale=None)
+    per_job, rem = divmod(warm["launches"]["probe_bucketed"], len(jobs))
+    if rem or not per_job:
+        raise AssertionError(f"executor speculate: {warm['launches']} over {len(jobs)} jobs")
+    env_off, rep_off, _, off = run_with("off", ExecutorConfig())
+    env_on, rep_on, _, on = run_with("on", ExecutorConfig(speculate=True))
+    same_outputs(env_off, env_on, names, "speculation off and on")
+    if rep_off.n_speculative != 0 or rep_on.n_speculative != 1:
+        raise AssertionError(f"executor speculate: {rep_off.n_speculative} clones off, "
+                             f"{rep_on.n_speculative} on (want 0 and 1): {on['records']} "
+                             f"deadlines {on['deadlines']}")
+    dup = [r for r in rep_on.records if r.job is target]
+    winner = [r for r in dup if not r.cancelled]
+    if len(dup) != 2 or len(winner) != 1 or not winner[0].speculative:
+        raise AssertionError(f"executor speculate: the clone did not win: {on['records']}")
+    if not rep_on.event_makespan() < rep_off.event_makespan():
+        raise AssertionError(f"executor speculate: makespan {rep_on.event_makespan()} with "
+                             f"speculation, {rep_off.event_makespan()} without")
+    for label, run, n in (("off", off, len(jobs)), ("on", on, len(jobs) + 1)):
+        if run["launches"]["probe_bucketed"] != n * per_job:
+            raise AssertionError(f"executor speculate {label}: {run['launches']} for {n} jobs "
+                                 f"at {per_job} launches each")
+    del env_on, rep_on, rep_off
+    env_s, rep_s, _, srt = run_with("sorted", ExecutorConfig(probe_backend="sorted"),
+                                    wall_scale=None)
+    same_outputs(env_off, env_s, names, "speculation and the sort-merge control")
+    del env_s, rep_s
+
+    calls = {"n": 0}
+
+    def clone_dies(job, attempt):
+        if job is target:
+            calls["n"] += 1
+            if calls["n"] > 1:
+                raise TransientFault("clone dies")
+
+    env_f, rep_f, _, dies = run_with("failing_clone", ExecutorConfig(speculate=True),
+                                     on_job=clone_dies)
+    if calls["n"] != 2 or rep_f.n_speculative != 0 or any(r.cancelled for r in rep_f.records):
+        raise AssertionError(f"executor speculate failing_clone: {calls['n']} target attempts, "
+                             f"{rep_f.n_speculative} clones: {dies['records']}")
+    same_outputs(env_off, env_f, names, "speculation and a failing clone")
+    del env_f, rep_f
+
+    seen = []
+
+    class Flaky(Executor):
+        """The straggler's first attempt reports an overflow."""
+
+        def run_job(self, job, *, cap_override=None, cap_slack=None):
+            outs, st = super().run_job(job, cap_override=cap_override, cap_slack=cap_slack)
+            if job is target:
+                seen.append((cap_override, cap_slack))
+                if len(seen) == 1:
+                    st = dict(st, overflow=3, forward_cap=512)
+            return outs, st
+
+    config = ExecutorConfig(cap_slack=0.5, speculate=True)
+    env_r, rep_r, ex_r, relax = run_with("relaxed_once", config, executor=Flaky)
+    if seen != [(None, None), (None, 1.0), (None, 1.0)] or rep_r.n_speculative != 1:
+        raise AssertionError(f"executor speculate relaxed_once: sizes {seen}, "
+                             f"{rep_r.n_speculative} clones: {relax['records']}")
+    if ex_r.config is not config or config != ExecutorConfig(cap_slack=0.5, speculate=True):
+        raise AssertionError("executor speculate relaxed_once: the ExecutorConfig changed")
+    same_outputs(env_off, env_r, names, "speculation and the relaxed retry")
+    relax.update(seen=[list(x) for x in seen], ft_counters=dict(ex_r.ft_counters))
+    runs = {"warm": warm, "off": off, "on": on, "sorted": srt, "failing_clone": dies,
+            "relaxed_once": relax}
+    # how close a job that does not straggle came to being cloned
+    margin = max(r["wall_over_deadline"]["max_other"] or 0.0 for r in runs.values())
+    return {"part": "speculate", "rows_per_relation": rows, "straggle": STRAGGLE,
+            "launches_per_job": per_job, "max_wall_over_deadline_not_straggling": margin,
+            "runs": runs}
+
+
+def poison_tenants():
+    """The reference's ``_poison_workload`` (``tests/test_failure_domains.py``):
+    three tenants' queries, tenant 1 guarding on its own ``PG``, named apart
+    so that one plan holds all three."""
+    from repro_torch.core.algebra import BSGF, Atom, all_of
+
+    conds = [Atom(r, v) for r, v in zip("STUV", XYZW)]
+    return [BSGF(f"Z{t}", XYZW, Atom("PG" if t == 1 else "R", *XYZW), all_of(*conds))
+            for t in range(3)]
+
+
+def poison(job, attempt):
+    """``_poison_hook``: every job reading ``PG`` fails, blamed on ``PG``."""
+    from repro_torch.core.executor import PermanentFault
+    from repro_torch.core.planner import job_reads
+
+    if "PG" in job_reads(job):
+        raise PermanentFault("poison tenant", rels={"PG"})
+
+
+def failure_sets(report) -> dict:
+    return {"records": sorted((repr(r.job), r.outcome) for r in report.records),
+            "failed": sorted(repr(r.job) for r in report.failed_jobs),
+            "tainted_relations": sorted(report.tainted_relations())}
+
+
+def executor_isolate(db, P, seed) -> dict:
+    """(d) ``fail_policy="isolate"``: the three tenants in one 1-ROUND plan
+    (one fused MSJ job), the job reading ``PG`` poisoned.  The failure sets
+    depend on the plan alone: the same plan on the CPU at 2**8 rows is the
+    oracle.  Untainted outputs equal the fault-free run's."""
+    from repro_torch.core import queries
+    from repro_torch.core.executor import Executor, ExecutorConfig
+    from repro_torch.core.planner import plan_one_round
+    from repro_torch.core.relation import db_from_dict
+    from repro_torch.engine.comm import SimComm
+
+    qs = poison_tenants()
+    plan = plan_one_round(qs)
+    (clean, rep_c), run_c = measured(lambda: Executor(dict(db), SimComm(P)).execute(plan))
+    check_path_kernels("executor isolate clean", rep_c, run_c["launches"])
+    ex = Executor(dict(db), SimComm(P), ExecutorConfig(fail_policy="isolate"))
+    (env, rep), run = measured(lambda: ex.execute(plan, on_job=poison))
+    check_path_kernels("executor isolate", rep, run["launches"])
+    small = queries.gen_db(qs, n_guard=EXECUTOR_ORACLE_ROWS, n_cond=EXECUTOR_ORACLE_ROWS,
+                           seed=seed)
+    cpu_ex = Executor(db_from_dict(small, P=P, device="cpu"), SimComm(P),
+                      ExecutorConfig(fail_policy="isolate"))
+    _, cpu_rep = cpu_ex.execute(plan, on_job=poison)
+    got, want = failure_sets(rep), failure_sets(cpu_rep)
+    if got != want or not got["failed"] or "Z1" not in got["tainted_relations"]:
+        raise AssertionError(f"executor isolate: failure sets {got}, the CPU plan's {want}")
+    tainted = set(got["tainted_relations"])
+    kept = [k for k in plan_outputs(plan) if k not in tainted]
+    if "Z1" in env or not kept:
+        raise AssertionError(f"executor isolate: published {sorted(env)}, kept {kept}")
+    same_outputs(clean, env, kept, "the fault-free and isolated runs")
+    return {"part": "isolate", "plan": "one_round of 3 tenants",
+            "runs": {"clean": run_c, "isolate": run}, **got, "untainted": kept,
+            "output_rows": {k: int(env[k].count()) for k in kept}}
+
+
+def executor_shrink(db, P) -> dict:
+    """(e) ``shrink_on_shard_loss``: A4's two pipelines planned PAR on two
+    slots, shard 0 of the first job's first lineage relation lost once:
+    recovered bit-identically from lineage, the rest run on one slot."""
+    import torch
+
+    from repro_torch.core import queries
+    from repro_torch.core.executor import Executor, ExecutorConfig, ShardLoss
+    from repro_torch.core.planner import job_reads, plan_par
+    from repro_torch.engine.comm import SimComm
+    from repro_torch.ft.elastic import lose_shard
+
+    plan = plan_par(queries.make_queries("A4"))
+    names = plan_outputs(plan)
+    (clean, rep_c), run_c = measured(lambda: Executor(dict(db), SimComm(P)).execute(plan, slots=2))
+    check_path_kernels("executor shrink clean", rep_c, run_c["launches"])
+    ex = Executor(dict(db), SimComm(P), ExecutorConfig(shrink_on_shard_loss=True))
+    lost = []
+
+    def lose(job, attempt):
+        if not lost:
+            rel = sorted(job_reads(job) & ex.lineage.keys())[0]
+            lost.append(rel)
+            ex.env[rel] = lose_shard(ex.env[rel], 0)
+            raise ShardLoss(rel, 0)
+
+    (env, rep), run = measured(lambda: ex.execute(plan, slots=2, on_job=lose, max_restarts=2))
+    check_path_kernels("executor shrink", rep, run["launches"])
+    same_outputs(clean, env, names, "the fault-free run and the shrunk run")
+    first_end = min(s.end for s in ex.schedule)
+    later = [s for s in ex.schedule if s.start >= first_end]
+    if ex.ft_counters["shard_recoveries"] != 1 or not later or {s.slot for s in later} != {0}:
+        raise AssertionError(f"executor shrink: {ex.ft_counters}, later slots "
+                             f"{[s.slot for s in later]}")
+    src, got = ex.lineage[lost[0]], ex.env[lost[0]]
+    if not (torch.equal(got.data, src.data) and torch.equal(got.valid, src.valid)):
+        raise AssertionError(f"executor shrink: {lost[0]} differs from its lineage source")
+    return {"part": "shrink", "plan": "A4 par",
+            "runs": {"clean": run_c, "shrink": run}, "lost": [lost[0], 0],
+            "ft_counters": dict(ex.ft_counters), "later_slots": sorted({s.slot for s in later}),
+            "dispatches": [[s.idx, s.slot, s.start, s.end] for s in ex.schedule]}
+
+
+def phase_executor(gdb, plan, P, greedy, seed, rows, host_work) -> dict:
+    """The executor's fault-tolerant scheduling on the card, one line per
+    part; returns the phase's launches for the ``kernels`` line.  Its
+    database and ``host_work`` (futures of later phases' draws) run on host
+    threads beside parts (a) and (b), and are waited for before part (c),
+    so that no host thread runs beside the walls that decide speculation."""
+    from repro_torch.core.relation import Relation
+
+    t0 = time.perf_counter()
+    host_db = in_background(executor_db, P, seed, rows)
+    total = dict.fromkeys(counters(), 0)
+
+    def part(fn, *args) -> None:
+        t_part = time.perf_counter()
+        line = fn(*args)
+        for run in line["runs"].values():
+            for k, v in run["launches"].items():
+                total[k] += v
+        emit({"phase": "executor", **line, "seconds": time.perf_counter() - t_part,
+              "probe_launches": sum(r["launches"]["probe_bucketed"] for r in line["runs"].values()),
+              "peak_mem_bytes": max(r["peak_mem_bytes"] for r in line["runs"].values())})
+
+    part(executor_waves, gdb, plan, P, greedy)
+    t_wait = time.perf_counter()
+    db = {k: Relation(r.name, r.data.to(DEVICE), r.valid.to(DEVICE))
+          for k, r in host_db.result().items()}
+    emit({"phase": "executor", "part": "data", "rows_per_relation": rows, "relations": sorted(db),
+          "seconds_after_waves": time.perf_counter() - t_wait})
+    part(executor_edges, db, P)
+    t_wait = time.perf_counter()
+    for work in host_work:
+        work.result()
+    emit({"phase": "executor", "part": "host_work", "waited_s": time.perf_counter() - t_wait})
+    part(executor_speculate, P, seed, rows)
+    part(executor_isolate, db, P, seed)
+    part(executor_shrink, db, P)
+    result = {"phase": "executor", "part": "total", "seconds": time.perf_counter() - t0,
+              "launches": total, "probe_wrapper": "probe_bucketed"}
+    emit(result)
+    return result
 
 
 # --------------------------------------------------------------------------
@@ -2275,27 +2787,36 @@ def corpus_oracle(rels):
     return np.sort(docs[keep, 0]).astype(np.int64)
 
 
-def train_pipeline(seed, spec):
-    """The Keep query over a 2**24-document crawl shard on the card
-    through ``data.pipeline.filter_corpus`` (counters set to 0 just
-    before, read just after: the probe kernel must have launched, bloom
-    not), held to a numpy oracle, and the same plan's outputs and per-job
-    counters bit-identical to ``probe_backend="sorted"``.  Returns the
-    kept ids and the line."""
-    import numpy as np
-    import torch
+def train_corpus(seed, spec) -> tuple:
+    """The Keep query's crawl shard (``data.synthetic.corpus_relations``)
+    and its numpy oracle, with the seconds each took: ``(rels, want,
+    data_s, oracle_s)``."""
+    from repro_torch.data import synthetic
 
-    from repro_torch.core.relation import db_from_dict
-    from repro_torch.data import pipeline, synthetic
-    from repro_torch.obs.tracer import Tracer
-
-    P, strategy = spec["P"], spec["strategy"]
     t0 = time.perf_counter()
     rels = synthetic.corpus_relations(2 ** spec["corpus_log2_docs"], seed=seed)
     data_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     want = corpus_oracle(rels)
-    oracle_s = time.perf_counter() - t0
+    return rels, want, data_s, time.perf_counter() - t0
+
+
+def train_pipeline(spec, corpus):
+    """The Keep query over a 2**24-document crawl shard (``corpus``, from
+    :func:`train_corpus`) on the card through ``data.pipeline.filter_corpus``
+    (counters set to 0 just before, read just after: the probe kernel must
+    have launched, bloom not), held to a numpy oracle, and the same plan's
+    outputs and per-job counters bit-identical to ``probe_backend="sorted"``.
+    Returns the kept ids and the line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.relation import db_from_dict
+    from repro_torch.data import pipeline
+    from repro_torch.obs.tracer import Tracer
+
+    P, strategy = spec["P"], spec["strategy"]
+    rels, want, data_s, oracle_s = corpus
     pipeline.filter_corpus(rels, P=P, strategy=strategy, device=DEVICE)  # warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2644,10 +3165,11 @@ def train_restart(seed, spec, kept) -> dict:
     return line
 
 
-def phase_train(seed: int, spec: dict) -> list:
-    """The training path: the SGF-filtered corpus (the probe kernel on the
-    path), gradients card against CPU, the flash backward, AdamW steps of
-    qwen3-0.6b whole, and a crash and restart from a checkpoint."""
+def phase_train(seed: int, spec: dict, corpus) -> list:
+    """The training path: the SGF-filtered corpus (``corpus``, a future of
+    :func:`train_corpus`; the probe kernel on the path), gradients card
+    against CPU, the flash backward, AdamW steps of qwen3-0.6b whole, and a
+    crash and restart from a checkpoint."""
     import torch
 
     t_phase = time.perf_counter()
@@ -2655,7 +3177,7 @@ def phase_train(seed: int, spec: dict) -> list:
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kept, pipe = train_pipeline(seed, spec)
+    kept, pipe = train_pipeline(spec, corpus.result())
     kept = kept.cpu().numpy()
     torch.cuda.empty_cache()
     reset_counts()
@@ -2905,20 +3427,28 @@ def mesh_tp_only(seed: int, port_src: str | None) -> int:
     return 0
 
 
-def msj_reference(seed, tmp):
-    """Part (a)'s reference: the A3 job under ``SimComm(P)`` on the card,
-    its count-sized ``forward_cap`` fixed here; each shard's result and
-    the relations written to ``tmp`` for the ranks."""
+def mesh_db_np(seed) -> dict:
+    """Part (a)'s A3 relations, drawn on the host."""
+    from repro_torch.core import queries
+
+    rows = 2 ** MESH["msj_log2_rows"]
+    return queries.gen_db(a3_semijoins()[0], n_guard=rows, n_cond=rows, sel=0.5, seed=seed)
+
+
+def msj_reference(db_np, tmp):
+    """Part (a)'s reference: the A3 job on ``db_np`` (from
+    :func:`mesh_db_np`) under ``SimComm(P)`` on the card, its count-sized
+    ``forward_cap`` fixed here; each shard's result and the relations
+    written to ``tmp`` for the ranks."""
     import numpy as np
     import torch
 
-    from repro_torch.core import msj, queries
+    from repro_torch.core import msj
     from repro_torch.core.relation import db_from_dict
     from repro_torch.engine.comm import SimComm, run_pipeline
 
-    rows, P = 2 ** MESH["msj_log2_rows"], MESH["msj_P"]
-    qs, sjs = a3_semijoins()
-    db_np = queries.gen_db(qs, n_guard=rows, n_cond=rows, sel=0.5, seed=seed)
+    P = MESH["msj_P"]
+    _, sjs = a3_semijoins()
     db = db_from_dict(db_np, P=P, device=DEVICE)
     cap = msj.count_forward_cap(msj.make_spec(sjs), db, SimComm(P))
     kit, stages = msj_stages(db, sjs, SimComm(P), cap)
@@ -3437,8 +3967,9 @@ def mesh_tp_serve_check(seed, spec, ranks, tmp) -> dict:
         "control_bf16_rel_l2": max(rel2(want, runs["bfloat16"]))}
 
 
-def phase_mesh(seed: int) -> list:
-    """The multi-card layer.  The parent writes part (a)'s ``SimComm``
+def phase_mesh(seed: int, db_np) -> list:
+    """The multi-card layer (``db_np``: a future of :func:`mesh_db_np`).
+    The parent writes part (a)'s ``SimComm``
     reference, runs part (a) at P = 1 and part (b) over its one-rank NCCL
     group and tears the group down; then one spawn of four gloo ranks runs
     parts (a), (c) and (d), and the parent runs part (d)'s one-rank
@@ -3459,7 +3990,7 @@ def phase_mesh(seed: int) -> list:
     rows, P = 2 ** MESH["msj_log2_rows"], MESH["msj_P"]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     try:
-        db_np, sjs, cap, sim_wall = msj_reference(seed, tmp)
+        db_np, sjs, cap, sim_wall = msj_reference(db_np.result(), tmp)
         torch.cuda.empty_cache()
         mesh = make_host_mesh(DEVICE)
         nccl = mesh_msj_nccl(db_np, sjs, mesh)
@@ -3884,6 +4415,18 @@ def main() -> int:
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
+    P, rows = SHARDS, 2**args.log2_rows
+    qs = queries.make_queries("A3")
+    sjs = [sj for q in qs for sj in semijoins_of(q)]
+    # the 1-ROUND and GREEDY databases are drawn on a host thread, in turn,
+    # beside the build and the first phases
+    g_rows = rows // 2
+    draws = ThreadPoolExecutor(max_workers=1)
+    db_np = draws.submit(queries.gen_db, qs, n_guard=rows, n_cond=rows, sel=0.5,
+                         seed=args.seed)
+    gdb_np = draws.submit(queries.gen_db, qs, n_guard=g_rows, n_cond=g_rows, sel=0.5,
+                          seed=args.seed)
+    draws.shutdown(wait=False)
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "name": kind, "nvidia_smi": smi,
@@ -3899,12 +4442,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": [str(s.relative_to(ROOT)) for s in srcs], "ptxas": ptxas})
 
-    P, rows = SHARDS, 2**args.log2_rows
-    qs = queries.make_queries("A3")
-    sjs = [sj for q in qs for sj in semijoins_of(q)]
     t0 = time.perf_counter()
-    db = db_from_dict(queries.gen_db(qs, n_guard=rows, n_cond=rows, sel=0.5, seed=args.seed),
-                      P=P)
+    db = db_from_dict(db_np.result(), P=P)
+    del db_np
     torch.cuda.synchronize()
     emit({"phase": "data", "rows_per_relation": rows, "P": P,
           "relations": {k: list(r.data.shape) for k, r in db.items()},
@@ -3921,10 +4461,10 @@ def main() -> int:
     # GREEDY adds an EVAL job, whose forward buffer is the reference's
     # no-assumption bound (P x the sum of its inputs' capacities per shard
     # pair): at half the rows the buffer and its exchanged copy fit the card
-    g_rows = rows // 2
-    gdb = db_from_dict(queries.gen_db(qs, n_guard=g_rows, n_cond=g_rows, sel=0.5,
-                                      seed=args.seed), P=P)
-    e2e.append(phase_e2e("greedy", gdb, plan_greedy(qs, stats_of_db(gdb), HADOOP), P, g_rows))
+    gdb = db_from_dict(gdb_np.result(), P=P)
+    del gdb_np
+    greedy_plan, greedy = plan_greedy(qs, stats_of_db(gdb), HADOOP), {}
+    e2e.append(phase_e2e("greedy", gdb, greedy_plan, P, g_rows, keep=greedy))
 
     # the bloom prefilter on the same database, one bit per guard row
     bloom_bits = g_rows
@@ -3936,7 +4476,6 @@ def main() -> int:
     del build_in, probe_in
     e2e.append(phase_e2e("one_round_bloom", gdb, plan_one_round(qs), P, g_rows,
                          bloom_bits=bloom_bits))
-    del gdb
     torch.cuda.empty_cache()
 
     # the all-pairs probe is O(rows**2) per shard: its run is cut in rows
@@ -3946,6 +4485,17 @@ def main() -> int:
     timings["probe_blocked"], blocked = phase_blocked(bdb, sjs, P, b_rows)
     e2e.append(blocked)
     del bdb
+    torch.cuda.empty_cache()
+
+    # the executor's scheduling modes and fault tolerance on GREEDY's
+    # database; the training corpus with its oracle and the mesh phase's
+    # relations are drawn on host threads during its first parts
+    corpus = in_background(train_corpus, args.seed, TRAIN)
+    mesh_db = in_background(mesh_db_np, args.seed)
+    e2e.append(phase_executor(gdb, greedy_plan, P, greedy, args.seed,
+                              2 ** min(EXECUTOR_LOG2_ROWS, args.log2_rows - 3),
+                              (corpus, mesh_db)))
+    del gdb, greedy
     torch.cuda.empty_cache()
 
     # the service's fused tick has one EVAL job over 4 units x 5 inputs,
@@ -3962,10 +4512,10 @@ def main() -> int:
     traces = start_dryrun_traces()
     try:
         # the pipeline's probe launches count on the kernels line
-        e2e.append(phase_train(args.seed, TRAIN)[0])
+        e2e.append(phase_train(args.seed, TRAIN, corpus)[0])
         torch.cuda.empty_cache()
         # and the mesh path's: every gloo rank's and the NCCL run's
-        e2e.append(phase_mesh(args.seed)[0])
+        e2e.append(phase_mesh(args.seed, mesh_db)[0])
         torch.cuda.empty_cache()
         phase_dryrun(args.seed, traces)
     finally:
