@@ -118,7 +118,23 @@ the ``executor`` phase's first two parts, which wait for them before
 9. ``oracle``  — the quickstart query on the card under PAR / GREEDY /
    1-ROUND, and 1-ROUND with the bloom prefilter, set-equal to the
    set-semantics oracle ``ref_engine``.
-10. ``lm_serve`` — the model zoo's serving path (``repro_torch.models``,
+10. ``examples`` — the reference's ``examples/`` scripts as the port runs
+   them (``repro_torch.examples``): each module's ``main`` in this process
+   on the card, in a temporary working directory, at the script's own
+   defaults (``train_lm``: 200 steps of the SMOKE qwen3-0.6b at 8 x 128),
+   one line each with its wall, the numbers it printed and its launches
+   (counters set to 0 just before).  Every MSJ job runs the backend the
+   cost model picks for card-resident data (``EXAMPLE_BACKENDS``: the hash
+   join, but for the PAR plan's all-pairs job on the 9-row ``Blocked``)
+   and each kernel job launches the table build and probe; quickstart and
+   data_pipeline print the reference scripts' numbers exactly, sgf_service
+   its tick 1 (4 canonical queries, 4 deduped, 2 jobs, 1,018,184 bytes)
+   and a warm tick 2 (0 jobs, 0 bytes) and writes a trace that parses;
+   serve_lm's tokens equal those of its requests served on the CPU with
+   the card's weights (float32, TF32 off); train_lm's stage 1 keeps 1,934
+   documents in 1 job and 248,948 bytes, its loss falls, and one step on
+   the card and one on the CPU from the same state agree within 1e-3.
+11. ``lm_serve`` — the model zoo's serving path (``repro_torch.models``,
    ``repro_torch.serve``), once per family at its published size, random
    weights from ``--seed`` (``LM_SERVE``): qwen3-0.6b (dense),
    olmoe-1b-7b (MoE, 64 experts top-8), falcon-mamba-7b (Mamba-1) and
@@ -156,7 +172,7 @@ the ``executor`` phase's first two parts, which wait for them before
    bytes (weights, valid self K/V, the enc-dec's cross K/V), with a
    profiler summary of three decode steps.  No kernel of the repo is on
    these paths: the launch counters, set to 0 before each family, stay 0.
-11. ``train``  — the training path.  ``pipeline``: the reference's Keep
+12. ``train``  — the training path.  ``pipeline``: the reference's Keep
    query (three negated semi-joins and one positive) over a 2**24-document
    crawl shard (``data.synthetic.corpus_relations``), P=16, 1-ROUND,
    through ``data.pipeline.filter_corpus`` on the card with every launch
@@ -174,7 +190,7 @@ the ``executor`` phase's first two parts, which wait for them before
    ``run_train_loop`` crashed at step 3 (checkpoints every 2 steps into a
    temporary directory, removed after), resumed: the loaded state bit for
    bit the saved one, resumed losses within 1e-3 of an uninterrupted run.
-12. ``mesh``   — the multi-card layer (``repro_torch.launch.mesh``,
+13. ``mesh``   — the multi-card layer (``repro_torch.launch.mesh``,
    ``engine.comm.MeshComm``, the sharding rules, sharded train state,
    reshard-on-load).  One card: NCCL at world size 1, and four gloo ranks
    sharing the card (NCCL refuses two ranks on one device; gloo stages card
@@ -225,7 +241,7 @@ the ``executor`` phase's first two parts, which wait for them before
    port, printing each rank's peak: so ``MESH_TP_TRAIN_LAYER_GATHER_PEAK``
    was read on the parent tree's port.
 
-13. ``dryrun`` — the multi-pod dry-run (``repro_torch.launch.dryrun``,
+14. ``dryrun`` — the multi-pod dry-run (``repro_torch.launch.dryrun``,
    ``launch.opcost``, ``launch.roofline``) held to real steps.  Two spawned
    processes trace, each as rank 0 of a fake process group on a fake
    (1, 1) mesh, qwen3-0.6b's train step at the ``train`` batch (8 × 4096,
@@ -243,7 +259,7 @@ the ``executor`` phase's first two parts, which wait for them before
    printed.  No kernel of the repo is on these paths.
 
 Then a ``kernels`` JSON line (``launches`` count the executor phase's,
-the pipeline's and the mesh ranks' too), the
+the examples', the pipeline's and the mesh ranks' too), the
 raw ``nvidia-smi`` name/power line, and as the last line ``{"ok": true,
 "device": {...}}``.  Without a CUDA device it exits 1 before printing any
 result.
@@ -643,17 +659,19 @@ def msj_stat(report, key) -> list:
 
 def check_path_kernels(name, report, launches, bloom=False, backend="kernel") -> list:
     """Every MSJ job of ``report`` that ran (an original or a speculative
-    clone, won or cancelled; not a failed or tainted unit) ran ``backend``;
-    on the kernel, every kernel of the path (the bloom kernels too with
+    clone, won or cancelled; not a failed or tainted unit) ran ``backend``
+    (a list: the backend of each such job in record order); where one ran
+    the kernel, every kernel of the path (the bloom kernels too with
     ``bloom``) launched, and the probe wrapper's count is its two kernels'.
     Returns the MSJ jobs' backends."""
     from repro_torch.core.planner import MSJJob
 
     backends = [r.backend for r in report.records
                 if isinstance(r.job, MSJJob) and r.outcome in ("ok", "cancelled")]
-    if not backends or any(b != backend for b in backends):
-        raise AssertionError(f"{name}: MSJ jobs ran {backends}, not {backend}")
-    if backend != "kernel":
+    want = [backend] * len(backends) if isinstance(backend, str) else list(backend)
+    if not backends or backends != want:
+        raise AssertionError(f"{name}: MSJ jobs ran {backends}, not {want}")
+    if "kernel" not in want:
         return backends
     idle = [k for k in ("probe_bucketed", "table_build", "table_probe")
             + (("bloom_build", "bloom_pack", "bloom_probe") if bloom else ())
@@ -1660,6 +1678,191 @@ def phase_oracle() -> None:
 
 
 # --------------------------------------------------------------------------
+# phase: the examples
+# --------------------------------------------------------------------------
+
+#: the backend the cost model picks for each MSJ job of each example on
+#: card-resident data, per executed plan in order (its per-job prices: the
+#: PAR plan's job on the 9-row ``Blocked`` has about one build row a shard,
+#: where the all-pairs compare is cheapest)
+EXAMPLE_BACKENDS = {
+    "quickstart": [["kernel"] * 3, ["kernel"], ["kernel"]],
+    "data_pipeline": [["kernel", "kernel", "dense", "kernel"], ["kernel"], ["kernel"]],
+    "sgf_service": [["kernel"], ["kernel"]],
+    "serve_lm": [],
+    "train_lm": [["kernel"]],
+}
+#: what the reference scripts print that does not depend on the hardware
+QUICKSTART_PLANS = {"PAR": (830, 4, 2, 246008), "GREEDY": (830, 2, 2, 223748),
+                    "1-ROUND": (830, 1, 1, 139748)}  # rows, jobs, rounds, bytes
+DATA_PIPELINE = {"par": (6672, 5, 2038284), "greedy": (6672, 2, 1945140),
+                 "one_round": (6672, 1, 1003884)}  # kept, jobs, bytes
+
+
+class executor_reports:
+    """Every report ``Executor.execute`` returns inside the block, in order."""
+
+    def __enter__(self) -> list:
+        from repro_torch.core.executor import Executor
+
+        self.execute, reports = Executor.execute, []
+
+        def execute(ex, *args, **kwargs):
+            env, report = self.execute(ex, *args, **kwargs)
+            reports.append(report)
+            return env, report
+
+        Executor.execute = execute
+        return reports
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.core.executor import Executor
+
+        Executor.execute = self.execute
+
+
+def example_checks(name, out) -> dict:
+    """The hardware-independent numbers of an example against the
+    reference script's; raises on a difference."""
+    import json
+
+    if name == "quickstart":
+        got = {k: (v["rows"], v["jobs"], v["rounds"], v["bytes_shuffled"])
+               for k, v in out["plans"].items()}
+        if out["oracle_rows"] != 830 or got != QUICKSTART_PLANS:
+            raise AssertionError(f"quickstart: {out['oracle_rows']} {got}")
+    elif name == "data_pipeline":
+        got = {k: (v["kept"], v["jobs"], v["bytes_shuffled"])
+               for k, v in out["strategies"].items()}
+        if (out["docs"], out["dup_hashes"], out["blocked_domains"]) != (16384, 7698, 9) \
+                or got != DATA_PIPELINE:
+            raise AssertionError(f"data_pipeline: {got}")
+    elif name == "sgf_service":
+        cold, warm = out["ticks"][:2]
+        if (cold["canonical"], cold["deduped"], cold["jobs"], cold["bytes_shuffled"],
+                warm["jobs"], warm["bytes_shuffled"]) != (4, 4, 2, 1018184, 0, 0):
+            raise AssertionError(f"sgf_service: ticks {cold} {warm}")
+        with open(out["trace"]) as f:
+            trace = json.load(f)
+        return {"trace_events": len(trace["traceEvents"])}
+    elif name == "train_lm":
+        if (out["kept"], out["jobs"], out["bytes_shuffled"]) != (1934, 1, 248948):
+            raise AssertionError(f"train_lm: stage 1 {out}")
+    return {}
+
+
+def serve_lm_on_host(tokens) -> dict:
+    """``examples/serve_lm.py``'s requests served on the CPU with the card's
+    weights (seed 0 drawn on the card, copied), float32: the tokens must
+    equal the card's."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import serve_lm
+    from repro_torch.models import model
+
+    cfg = get_config("qwen3-0.6b", smoke=True, dtype="float32")
+    params = model.params_from_numpy(
+        cfg, model.params_to_numpy(model.init_params(cfg, 0, device=DEVICE)), device="cpu")
+    reqs = serve_lm.make_requests(cfg, 6, 8)
+    t0 = time.perf_counter()
+    serve_lm.serve(cfg, params, reqs)
+    host = [r.out for r in reqs]
+    if host != tokens:
+        raise AssertionError(f"serve_lm: card tokens {tokens}, host tokens {host}")
+    return {"host_s": time.perf_counter() - t0, "tokens_equal_host": True}
+
+
+def train_lm_first_step() -> dict:
+    """One step of ``examples/train_lm.py``'s stage 2 on the card and on the
+    CPU from the same state (seed 0 drawn on the card, copied) and batch:
+    the losses within ``RESTART_LOSS_TOL`` relative."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.examples import train_lm
+    from repro_torch.models import model
+    from repro_torch.train import optimizer, train_step as ts
+
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    opt_cfg = optimizer.OptConfig(lr=1e-3, warmup_steps=20, total_steps=200)
+    kept, _ = train_lm.curate(4096, seed=1, P=8, device="cpu")
+    card = ts.init_state(cfg, 0, opt_cfg, device=DEVICE)
+    cpu = ts.init_state(cfg, 0, opt_cfg, device="cpu")
+    with torch.no_grad():
+        for p, q in zip(cpu["params"].parameters(), card["params"].parameters(), strict=True):
+            p.copy_(q.cpu())
+    loss, secs = {}, {}
+    for where, state in (("card", card), ("cpu", cpu)):
+        device = DEVICE if where == "card" else "cpu"
+        t0 = time.perf_counter()
+        _, hist, _ = train_lm.train(cfg, opt_cfg, state,
+                                    train_lm.kept_batch_fn(cfg, kept, 8, 128, device),
+                                    steps=1, log_every=1)
+        loss[where], secs[where] = hist[0][1], time.perf_counter() - t0
+    err = abs(loss["card"] - loss["cpu"]) / loss["cpu"]
+    if not err <= RESTART_LOSS_TOL:
+        raise AssertionError(f"train_lm: first-step loss card {loss['card']} against cpu "
+                             f"{loss['cpu']}: {err} > {RESTART_LOSS_TOL}")
+    return {"first_loss_card": loss["card"], "first_loss_cpu": loss["cpu"],
+            "first_loss_rel_err": err, "first_step_s": secs}
+
+
+def phase_examples() -> list:
+    """``repro_torch.examples``: each module's ``main`` in this process on
+    the card, in a temporary working directory, at the reference script's
+    defaults (``train_lm``: 200 steps of the SMOKE qwen3-0.6b at 8 x 128),
+    every launch counter set to 0 just before and read just after; each
+    MSJ job on the backend of ``EXAMPLE_BACKENDS``, the hardware-independent
+    numbers the reference scripts print, ``serve_lm``'s tokens against the
+    CPU's and ``train_lm``'s first-step loss against one step on the CPU.
+    One line each; returns them (their launches count on the kernels line)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from repro_torch.examples import data_pipeline, quickstart, serve_lm, sgf_service, train_lm
+
+    mains = {"quickstart": quickstart.main, "data_pipeline": data_pipeline.main,
+             "sgf_service": sgf_service.main, "serve_lm": serve_lm.main,
+             "train_lm": train_lm.main}
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        for name, main in mains.items():
+            printed = io.StringIO()
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            with executor_reports() as reports, contextlib.redirect_stdout(printed):
+                out = main([])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            if out["device"] != str(torch.device(DEVICE)):
+                raise AssertionError(f"{name}: ran on {out['device']}")
+            want = EXAMPLE_BACKENDS[name]
+            if len(reports) != len(want):
+                raise AssertionError(f"{name}: {len(reports)} executed plans, not {len(want)}")
+            backends = [check_path_kernels(f"{name} plan {i}", rep, launches, backend=w)
+                        for i, (rep, w) in enumerate(zip(reports, want))]
+            if not want and any(launches.values()):
+                raise AssertionError(f"{name}: kernels launched off the MSJ path: {launches}")
+            extra = example_checks(name, out)
+            with contextlib.redirect_stdout(io.StringIO()):  # the comparisons' own prints
+                if name == "serve_lm":
+                    extra.update(serve_lm_on_host(out["tokens"]))
+                elif name == "train_lm":
+                    extra.update(train_lm_first_step())
+            line = {"phase": "examples", "example": name, "wall_s": wall, "numbers": out,
+                    "msj_backends": backends, "launches": launches,
+                    "probe_wrapper": "probe_bucketed", **extra,
+                    "printed": printed.getvalue().splitlines()}
+            emit(line)
+            lines.append(line)
+    return lines
+
+
+# --------------------------------------------------------------------------
 # phase 7: the SGF query service
 # --------------------------------------------------------------------------
 
@@ -1783,45 +1986,15 @@ def run_baseline(catalog, tenants, P):
     return outs, line
 
 
-def indexed_bsgf(db, q) -> set:
-    """``ref_engine.eval_bsgf(db, q)`` (set semantics, Section 3.1) with each
-    condition atom's conforming facts indexed by the values of its
-    variables that the guard binds: one set lookup per guard fact and atom
-    where ``ref_engine`` scans the atom's relation.  A fact agrees with a
-    guard binding exactly when its values of those variables equal the
-    binding's (a conforming fact holds one value per variable), so the
-    lookup answers ``atom_holds``."""
-    from repro_torch.core.algebra import cond_atoms, eval_cond
-    from repro_torch.core.ref_engine import fact_conforms
-
-    bound = set(q.guard.vars)
-    index = {}
-    for a in cond_atoms(q.cond):
-        keys = [v for v in a.vars if v in bound]
-        pos = [a.terms.index(v) for v in keys]
-        index[a] = (keys, {tuple(f[i] for i in pos) for f in db.get(a.rel, ())
-                           if fact_conforms(f, a)})
-    out = set()
-    for fact in db.get(q.guard.rel, ()):
-        if not fact_conforms(fact, q.guard):
-            continue
-        binding = {t: v for v, t in zip(fact, q.guard.terms) if isinstance(t, str)}
-        if q.cond is not None and not eval_cond(q.cond, {
-                a: tuple(binding[v] for v in keys) in facts
-                for a, (keys, facts) in index.items()}):
-            continue
-        out.add(tuple(binding[v] for v in q.out_vars))
-    return out
-
-
 def service_oracle(P) -> None:
     """One tick at 2**12 rows on the card, set-equal to the indexed oracle
-    (:func:`indexed_bsgf`, held to ``ref_engine`` by
+    (``ref_engine.indexed_bsgf``, held to ``ref_engine.eval_bsgf`` by
     ``tests/test_torch_service.py``); its line gives the seconds of the
     tick and of the oracle apart."""
     import torch
 
     from repro_torch.core import queries
+    from repro_torch.core.ref_engine import indexed_bsgf
     from repro_torch.service import SGFService, catalog_from_numpy
 
     t_start = time.perf_counter()
@@ -4505,6 +4678,8 @@ def main() -> int:
     e2e.extend({**line, "probe_wrapper": "probe_bucketed"} for line in service)
 
     phase_oracle()
+    # the examples' probe launches count on the kernels line
+    e2e.extend(phase_examples())
     torch.cuda.empty_cache()
     for spec in LM_SERVE:
         phase_lm_serve(args.seed, spec)

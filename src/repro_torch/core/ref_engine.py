@@ -63,6 +63,33 @@ def eval_bsgf(db: SetDB, q: BSGF) -> set[tuple]:
     return out
 
 
+def indexed_bsgf(db: SetDB, q: BSGF) -> set[tuple]:
+    """:func:`eval_bsgf` with each condition atom's conforming facts
+    indexed by the values of its variables that the guard binds: one set
+    lookup per guard fact and atom where :func:`eval_bsgf` scans the atom's
+    relation.  A fact agrees with a guard binding exactly when its values
+    of those variables equal the binding's (a conforming fact holds one
+    value per variable), so the lookup answers :func:`atom_holds`."""
+    bound = set(q.guard.vars)
+    index = {}
+    for a in cond_atoms(q.cond) if q.cond is not None else ():
+        keys = [v for v in a.vars if v in bound]
+        pos = [a.terms.index(v) for v in keys]
+        index[a] = (keys, {tuple(f[i] for i in pos) for f in db.get(a.rel, ())
+                           if fact_conforms(f, a)})
+    out: set[tuple] = set()
+    for fact in db.get(q.guard.rel, ()):
+        if not fact_conforms(fact, q.guard):
+            continue
+        binding = _binding(fact, q.guard)
+        if q.cond is not None and not eval_cond(q.cond, {
+                a: tuple(binding[v] for v in keys) in facts
+                for a, (keys, facts) in index.items()}):
+            continue
+        out.add(tuple(binding[v] for v in q.out_vars))
+    return out
+
+
 def eval_sgf(db: SetDB, sgf: SGF) -> dict[str, set[tuple]]:
     """Evaluate all BSGFs in order; returns every intermediate output."""
     env = {k: set(v) for k, v in db.items()}

@@ -53,6 +53,9 @@ from repro_torch.core.relation import db_from_dict  # noqa: E402
 from repro_torch.engine.comm import SimComm  # noqa: E402
 from repro_torch.obs.perfetto import audit_trace  # noqa: E402
 from test_torch_models import one_thread  # noqa: E402, F401
+from test_torch_msj import jit_stages  # noqa: E402, F401
+
+pytestmark = pytest.mark.usefixtures("jit_stages")
 
 P = 2
 XY = ("x", "y")

@@ -19,7 +19,11 @@ same-shaped MSJ jobs and the ``overlap=True``, ``skew_defense=True`` and
 the skew run alone costs twice as long); 1-ROUND and GREEDY run the
 count-sized caps.  One SGF family (C1, ``plan_sgf``) is compared with
 the reference as well; all four C families are held against the
-set-semantics oracle.
+set-semantics oracle.  The port's ``examples/quickstart.py``
+(``repro_torch.examples.quickstart``) runs its 1-ROUND plan beside the
+reference script's (its database, P=8, the default config), bit for bit,
+and its ``main`` prints the reference script's numbers for all three
+plans.
 """
 import numpy as np
 import pytest
@@ -27,6 +31,7 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
+from repro.core import algebra as jalg  # noqa: E402
 from repro.core import costmodel as jcost  # noqa: E402
 from repro.core import executor as jex  # noqa: E402
 from repro.core import planner as jplan  # noqa: E402
@@ -42,10 +47,14 @@ from repro_torch.core.executor import (  # noqa: E402
     execute_plan,
     resolve_probe_backend,
 )
-from repro_torch.core.relation import Relation, db_from_reference  # noqa: E402
+from repro_torch.core.relation import Relation, db_from_dict, db_from_reference  # noqa: E402
 from repro_torch.engine.comm import SimComm  # noqa: E402
+from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.kernels.msj_probe import ops  # noqa: E402
 from test_torch_models import one_thread  # noqa: E402, F401
+from test_torch_msj import jit_stages  # noqa: E402, F401
+
+pytestmark = pytest.mark.usefixtures("jit_stages")
 
 P = 2
 N = 64
@@ -291,3 +300,36 @@ def test_unported_layers_raise():
     assert ex.last_sanitize == []
     assert torch.equal(env1["Z"].data, env0["Z"].data)
     assert torch.equal(env1["Z"].valid, env0["Z"].valid)
+
+
+def test_quickstart_one_round_matches_reference():
+    """``examples/quickstart.py``'s 1-ROUND plan on its database (R, S, T
+    of 2000, 1500 and 1000 rows over [0, 64), P=8, ``probe_backend="auto"``
+    with count-sized caps) in both packages: ``data``, ``valid``, each
+    job's counters and backend equal, the output the script's oracle's."""
+    db_np = quickstart.make_db()
+    tq = quickstart.running_example()
+    jq = jalg.BSGF("Z", ("x", "y"), jalg.Atom("R", "x", "y"), jalg.And(
+        jalg.Or(jalg.Atom("S", "x", "y"), jalg.Atom("S", "y", "x")), jalg.Atom("T", "x", "z")))
+    assert repr(jq) == repr(tq)
+    jenv, jrep = jex.execute_plan(jdb_from_dict(db_np, P=8), jplan.plan_one_round([jq]),
+                                  JSimComm(8))
+    tdb = db_from_dict(db_np, P=8, device="cpu")
+    want = quickstart.oracle(db_np, tq)
+    tenv, trep = quickstart.run_plan(tdb, quickstart.plans_for(tq, tdb)["1-ROUND"], want)
+    np.testing.assert_array_equal(np.asarray(jenv["Z"].data), tenv["Z"].data.numpy())
+    np.testing.assert_array_equal(np.asarray(jenv["Z"].valid), tenv["Z"].valid.numpy())
+    assert [(repr(r.job), r.backend, r.stats) for r in jrep.records] == \
+        [(repr(r.job), r.backend, r.stats) for r in trep.records]
+    assert len(want) == 830
+
+
+def test_quickstart_main_on_the_cpu(capsys):
+    """``main(["--device", "cpu"])``: the reference script's numbers."""
+    out = quickstart.main(["--device", "cpu"])
+    assert out["oracle_rows"] == 830
+    assert {k: (v["rows"], v["jobs"], v["rounds"], v["bytes_shuffled"])
+            for k, v in out["plans"].items()} == {
+        "PAR": (830, 4, 2, 246008), "GREEDY": (830, 2, 2, 223748),
+        "1-ROUND": (830, 1, 1, 139748)}
+    assert "all plans agree with the oracle" in capsys.readouterr().out

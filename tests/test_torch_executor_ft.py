@@ -35,9 +35,11 @@ report's speculative count, failed jobs and tainted relations;
 ``ref_engine``.  No tolerance: every value is an int32, a bool, a count
 or an integer second.
 
-The reference compiles each operation shape on the CPU (tens of ms each),
-so every scenario runs at 64 rows per relation at P = 2 (the reference's
-own tests use 32, 64, 96 and 128 rows) with static forward capacities
+The reference compiles on the CPU (its pipeline stages whole, by
+``jit_stages`` of ``tests/test_torch_msj.py``; its host-side operations
+each per shape), so every scenario runs at 64 rows per relation at P = 2
+(the reference's own tests use 32, 64, 96 and 128 rows) with static
+forward capacities
 (``count_sized=False``: one capacity per relation shape, not one per job;
 ``tests/test_torch_executor.py`` holds the count-sized shuffle), a
 scenario that several tests read is one module-scoped fixture, and the
@@ -69,6 +71,9 @@ from repro_torch.core.relation import Relation, db_from_dict  # noqa: E402
 from repro_torch.engine.comm import SimComm  # noqa: E402
 from repro_torch.ft import elastic, supervisor  # noqa: E402
 from test_torch_models import one_thread  # noqa: E402, F401
+from test_torch_msj import jit_stages  # noqa: E402, F401
+
+pytestmark = pytest.mark.usefixtures("jit_stages")
 
 P = 2
 N = 64

@@ -30,6 +30,9 @@ from repro_torch.core.relation import Relation, db_from_reference  # noqa: E402
 from repro_torch.engine.comm import SimComm  # noqa: E402
 from repro_torch.ft import elastic, supervisor  # noqa: E402
 from test_torch_models import one_thread  # noqa: E402, F401
+from test_torch_msj import jit_stages  # noqa: E402, F401
+
+pytestmark = pytest.mark.usefixtures("jit_stages")
 
 
 def _pair(rows, **kw):

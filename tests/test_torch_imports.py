@@ -40,7 +40,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.launch.train", "repro_torch.launch.mesh",
             "repro_torch.launch.dryrun", "repro_torch.launch.opcost",
             "repro_torch.launch.roofline", "repro_torch.launch.report",
-            "repro_torch.models.parallel"} <= set(mods)
+            "repro_torch.models.parallel", "repro_torch.examples.quickstart",
+            "repro_torch.examples.data_pipeline", "repro_torch.examples.sgf_service",
+            "repro_torch.examples.serve_lm", "repro_torch.examples.train_lm"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -68,3 +70,18 @@ def test_sources_ship_with_the_package():
     srcs = build.sources()
     assert [s.name for s in srcs] == ["bloom.cu", "probe_hash.cu"]
     assert all(build.lib_path(s).parent == build.BUILD_DIR for s in srcs)
+
+
+@pytest.mark.parametrize("name", ["quickstart", "data_pipeline", "sgf_service", "serve_lm",
+                                  "train_lm"])
+def test_examples_need_a_card(monkeypatch, name):
+    """``python -m repro_torch.examples.<name>`` without ``--device cpu``
+    runs on the card, and raises where there is none."""
+    import importlib
+
+    import torch
+
+    example = importlib.import_module(f"repro_torch.examples.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        example.main([])

@@ -16,13 +16,20 @@ The reference runs under ``jax.jit`` with an explicit ``forward_cap``
 traced); the port gets the same cap, and the count phase is compared on
 its own.  On the CPU the reference's cost is compile time, and one traced
 program compiles several times faster than its operations one by one.
+Where a test runs the reference's executor, whose count phase reads the
+host between its pipelines, :func:`jit_stages` jits each pipeline stage
+instead; the port's files that run reference plans use it.
 """
+import contextlib
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+import jax.extend  # noqa: E402
 
+from repro.core import eval_op as jeval_op  # noqa: E402
 from repro.core import msj as jmsj  # noqa: E402
 from repro.core import queries as Q  # noqa: E402
 from repro.core import algebra as jalg  # noqa: E402
@@ -41,6 +48,55 @@ from test_torch_models import one_thread  # noqa: E402, F401
 P = 2
 N = 96
 CAP = 400  # forward bucket capacity: no overflow at N rows per relation
+
+
+#: compiled pipeline stages by traced program and captured constants
+_STAGES: dict = {}
+
+
+def _jit_stage(stage, sid, carry):
+    """``jax.vmap(stage)(sid, carry)`` by a compiled program kept by its
+    jaxpr (and the bytes of the constants it captured): a stage that traces
+    to the program of an earlier call reuses that call's compile."""
+    closed, out_shape = jax.make_jaxpr(jax.vmap(stage), return_shape=True)(sid, carry)
+    consts = tuple((c.shape, str(c.dtype), np.asarray(c).tobytes()) for c in closed.consts)
+    key = (str(closed.jaxpr), consts)
+    if key not in _STAGES:
+        _STAGES[key] = jax.jit(jax.extend.core.jaxpr_as_fun(closed))
+    out = _STAGES[key](*jax.tree.leaves((sid, carry)))
+    return jax.tree.unflatten(jax.tree.structure(out_shape), out)
+
+
+def jit_pipeline(comm, stages, stacked_args, *, tracer=None, names=None):
+    """``repro.engine.comm.run_pipeline`` on a ``SimComm`` with each stage's
+    ``vmap`` over the shards compiled whole (:func:`_jit_stage`): one XLA
+    compile per distinct stage program where the eager stage compiles each
+    of its operations' shapes.  The stages (the reference's own code) and
+    the exchanges between them are as ``run_pipeline`` runs them, so every
+    value is the same (int32 and bool arrays); a tracer's phase spans are
+    opened around the same steps."""
+    traced = tracer is not None and getattr(tracer, "enabled", False)
+    carry = stacked_args
+    for i, stage in enumerate(stages):
+        label = names[i] if names and i < len(names) else getattr(stage, "__name__", f"stage{i}")
+        with tracer.span(label) if traced else contextlib.nullcontext():
+            send, carry = _jit_stage(stage, comm.shard_ids(), carry)
+            if send is not None:
+                carry = (jax.tree.map(comm.all_to_all, send), carry)
+            if traced and getattr(tracer, "trace_sync", False):
+                carry = jax.block_until_ready(carry)
+    return carry
+
+
+@pytest.fixture(scope="module")
+def jit_stages():
+    """For the module: the reference's MSJ and EVAL operators run their
+    pipelines by :func:`jit_pipeline` (its executor, planner and host-side
+    steps as they are)."""
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (jmsj, jeval_op):
+            mp.setattr(mod, "run_pipeline", jit_pipeline)
+        yield
 
 
 def _dbs(db_np):

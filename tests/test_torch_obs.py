@@ -48,6 +48,9 @@ from repro_torch.engine.comm import SimComm  # noqa: E402
 from repro_torch.ft.supervisor import FTStats  # noqa: E402
 from repro_torch.obs.tracer import Span  # noqa: E402
 from test_torch_models import one_thread  # noqa: E402, F401
+from test_torch_msj import jit_stages  # noqa: E402, F401
+
+pytestmark = pytest.mark.usefixtures("jit_stages")
 
 GOLDEN = Path(__file__).parent / "data" / "golden_straggler.trace.json"
 

@@ -21,6 +21,16 @@ equality: every value is an int32, a bool or a count.
 
 The reference compiles every operation shape on the CPU, so both runs are
 module-scoped and every test reads them.
+
+The port's ``examples/sgf_service.py`` (``repro_torch.examples.sgf_service``)
+runs its four ticks (cold and traced, warm, after an unrelated register,
+after re-registering ``S``) over this file's four tenants and catalog
+(whose shapes the reference has compiled by then) beside the reference
+script's steps on ``repro`` over the same: each tick's requests'
+``data``/``valid``, counters (all but the wall-clock ones), ``last_tick``,
+jobs and bytes, and tick 1's phase names, counts and bytes and its
+trace's tracks are equal.  Its ``main`` at the script's own size (its
+eight tenants, 2048 rows, P=8) prints the reference script's numbers.
 """
 import numpy as np
 import pytest
@@ -34,13 +44,19 @@ from repro.core.executor import ExecutorConfig as JConfig, PermanentFault as JFa
 from repro.core.planner import job_reads as jjob_reads  # noqa: E402
 from repro.engine.comm import SimComm as JSimComm  # noqa: E402
 from repro import service as jsvc  # noqa: E402
+from repro.obs import Tracer as JTracer, phase_breakdown as jphase_breakdown  # noqa: E402
+from repro.obs import write_trace as jwrite_trace  # noqa: E402
 from repro_torch.core import queries, ref_engine  # noqa: E402
 from repro_torch.core.algebra import Atom, BSGF  # noqa: E402
 from repro_torch.core.executor import ExecutorConfig, PermanentFault  # noqa: E402
 from repro_torch.core.planner import job_reads  # noqa: E402
 from repro_torch.engine.comm import SimComm  # noqa: E402
 from repro_torch import service as tsvc  # noqa: E402
+from repro_torch.examples import sgf_service  # noqa: E402
 from test_torch_models import one_thread  # noqa: E402, F401
+from test_torch_msj import jit_stages  # noqa: E402, F401
+
+pytestmark = pytest.mark.usefixtures("jit_stages")
 
 P = 4
 N = 256
@@ -211,23 +227,11 @@ def test_cold_tick_matches_oracle(runs):
         assert got == ref_engine.eval_bsgf(setdb, T_TENANTS[t][0])
 
 
-def _chip_smoke():
-    """The repository root's ``chip_smoke.py`` as a module (importing it
-    runs nothing)."""
-    import importlib.util
-    from pathlib import Path
-
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 @pytest.mark.parametrize("t", range(4))
 def test_chip_smoke_indexed_oracle_is_ref_engine(t):
-    """``chip_smoke.py``'s service oracle (an index per condition atom) is
-    set-equal to ``ref_engine`` on each tenant's query over this file's
+    """``ref_engine.indexed_bsgf`` (an index per condition atom; the oracle
+    of ``chip_smoke.py``'s service line and of the port's examples) is
+    set-equal to ``ref_engine.eval_bsgf`` on each tenant's query over this file's
     catalog, and on two more over it with ``R`` given rows that repeat a
     value: a guard with a constant and a repeated variable, and one whose
     condition has an ``OR``, a ``NOT`` and a variable the guard binds
@@ -236,7 +240,7 @@ def test_chip_smoke_indexed_oracle_is_ref_engine(t):
 
     db = _db_np()
     setdb = {k: {tuple(map(int, r)) for r in v} for k, v in db.items()}
-    indexed = _chip_smoke().indexed_bsgf
+    indexed = ref_engine.indexed_bsgf
     want = ref_engine.eval_bsgf(setdb, T_TENANTS[t][0])
     assert want and indexed(setdb, T_TENANTS[t][0]) == want
     rows = {tuple(map(int, r)) for r in db["R"][:64]}
@@ -288,3 +292,109 @@ def test_catalog_places_relations_on_its_device():
         cat.register("M", Relation.empty("M", 1, P=2, device="meta"))
     with pytest.raises(ValueError, match="sharded P=1"):
         cat.register("T3", Relation.from_numpy("T3", np.zeros((2, 1)), device="cpu"))
+
+
+# --------------------------------------------------------------------------
+# examples/sgf_service.py
+# --------------------------------------------------------------------------
+
+def ref_example_query(t):
+    """``examples/sgf_service.py:tenant_query`` on the reference's algebra."""
+    guard = "R" if t % 2 == 0 else "G"
+    conds = ([JAtom(r, "x") for r in "STUV"] if t % 3 == 1
+             else [JAtom(r, v) for r, v in zip("STUV", XYZW)])
+    return JBSGF("Z", XYZW, JAtom(guard, *XYZW), jall_of(*conds))
+
+
+def ref_example(workload, db_np, trace_path):
+    """The reference script's four ticks on ``repro`` (P=4, four slots, a
+    tracer): each tick's requests and numbers, tick 1's phase breakdown and
+    trace."""
+    svc = jsvc.SGFService(jsvc.catalog_from_numpy(db_np, P=P), slots=4, tracer=JTracer())
+    ticks = []
+
+    def tick(label):
+        reqs = [svc.submit([q]) for q in workload]
+        svc.tick()
+        ticks.append({"tick": label, "requests": reqs, "jobs": svc.last_report.n_jobs,
+                      "bytes_shuffled": svc.last_report.bytes_shuffled(),
+                      "canonical": len(svc.last_batch.queries),
+                      "deduped": svc.last_batch.n_deduped, "last_tick": dict(svc.last_tick),
+                      "counters": svc.counters()})
+
+    tick("cold")
+    phases = jphase_breakdown(svc.last_report)
+    jwrite_trace(trace_path, svc.last_report, title="tick-1", metrics=svc.metrics)
+    tick("warm")
+    svc.catalog.register("BYSTANDER", np.asarray([[0, 0]], np.int32))
+    tick("unrelated_register")
+    svc.catalog.register("S", db_np["S"])
+    tick("dependent_register")
+    return {"ticks": ticks, "phases": phases, "trace": trace_path}
+
+
+@pytest.fixture(scope="module")
+def example_runs(runs, tmp_path_factory):
+    """After :func:`runs`, so the reference's shapes are compiled."""
+    tmp = tmp_path_factory.mktemp("sgf_service")
+    db = _db_np()
+    ref = ref_example([qs[0] for qs in J_TENANTS], db, str(tmp / "ref.trace.json"))
+    port = sgf_service.serve([qs[0] for qs in T_TENANTS], db, P=P, slots=4, device="cpu",
+                             trace_path=str(tmp / "port.trace.json"))
+    return ref, port
+
+
+def _tracks(path):
+    import json
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["tid"], e["name"], e["args"]) for e in events if e["ph"] == "M"]
+
+
+def test_example_tenants_are_the_reference_scripts():
+    assert [repr(sgf_service.tenant_query(t)) for t in range(8)] == \
+        [repr(ref_example_query(t)) for t in range(8)]
+
+
+@pytest.mark.parametrize("i,label", list(enumerate(STEPS[:4])))
+def test_example_ticks_match_reference(example_runs, i, label):
+    ref, port = example_runs
+    j, t = ref["ticks"][i], port["ticks"][i]
+    assert j["tick"] == t["tick"] == label
+    for key in ("jobs", "bytes_shuffled", "canonical", "deduped", "last_tick"):
+        assert j[key] == t[key], key
+    wall = set(WALL_KEYS)
+    assert {k: v for k, v in j["counters"].items() if k not in wall} == \
+        {k: v for k, v in t["counters"].items() if k not in wall}
+    assert len(j["requests"]) == len(t["requests"]) == 4
+    for jr, tr in zip(j["requests"], t["requests"]):
+        assert jr.outputs.keys() == tr.outputs.keys() == {"Z0"}
+        np.testing.assert_array_equal(np.asarray(jr.outputs["Z0"].data),
+                                      tr.outputs["Z0"].data.numpy())
+        np.testing.assert_array_equal(np.asarray(jr.outputs["Z0"].valid),
+                                      tr.outputs["Z0"].valid.numpy())
+
+
+def test_example_phases_and_trace_match_reference(example_runs):
+    ref, port = example_runs
+    drop_wall = lambda ph: {k: (v["count"], v["bytes"]) for k, v in ph.items()}  # noqa: E731
+    assert drop_wall(ref["phases"]) == drop_wall(port["phases"])
+    assert "msj.probe" in port["phases"] and "eval.reduce" in port["phases"]
+    assert _tracks(ref["trace"]) == _tracks(port["trace"])
+
+
+def test_example_main_at_its_size(tmp_path, capsys):
+    """``main(["--device", "cpu"])``: eight tenants, 2048 rows, P=8, the
+    reference script's printed numbers and its own checks."""
+    out = sgf_service.main(["--device", "cpu", "--trace", str(tmp_path / "t.json")])
+    cold, warm, unrelated, dependent = out["ticks"]
+    assert (cold["canonical"], cold["deduped"], cold["jobs"], cold["bytes_shuffled"]) == \
+        (4, 4, 2, 1018184)
+    assert (warm["last_tick"]["warm_queries"], warm["last_tick"]["cold_queries"],
+            warm["jobs"], warm["bytes_shuffled"]) == (4, 0, 0, 0)
+    assert unrelated["jobs"] == 0 and dependent["jobs"] > 0
+    assert dependent["last_tick"]["cold_queries"] == dependent["canonical"] == 4
+    assert _tracks(out["trace"])
+    assert "tick 1: 8 tenants -> 4 canonical queries (4 deduped), 2 jobs, " \
+           "1018184 bytes shuffled" in capsys.readouterr().out

@@ -6,7 +6,11 @@ CPU, float32, with the reference's parameters carried across by
 ``params_from_numpy``: tokens must be exactly equal, for the dense
 decoder and for the MoE, SSM and hybrid families.  The batcher's cases are
 the reference's own (``tests/test_serving.py``); the launcher runs with
-``--smoke --device cpu``."""
+``--smoke --device cpu``.  The port's ``examples/serve_lm.py``
+(``repro_torch.examples.serve_lm``) serves the reference script's requests
+(``--requests 2 --max-new 4``) with the reference's weights: its tokens
+equal those of the reference script's batcher, and its own check against
+unbatched generation passes."""
 import subprocess
 import sys
 from pathlib import Path
@@ -23,6 +27,7 @@ from repro.models import model as rmodel  # noqa: E402
 from repro.serve import batcher as rbatcher  # noqa: E402
 from repro.serve.serve_step import greedy_generate as r_greedy  # noqa: E402
 from repro_torch import configs  # noqa: E402
+from repro_torch.examples import serve_lm  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import model  # noqa: E402
 from repro_torch.serve import batcher  # noqa: E402
@@ -73,6 +78,27 @@ def test_batcher_matches_reference_batcher(qwen3):
         assert rt.out == [int(x) for x in rr.out]
         batch = {"tokens": torch.as_tensor(rt.prompt[None, :])}
         assert greedy_generate(cfg_t, tp, batch, steps=5, max_len=64)[0].tolist() == rt.out
+
+
+def test_serve_lm_example_matches_reference_script(qwen3, capsys):
+    """``examples/serve_lm.py`` at ``--requests 2 --max-new 4``: the same
+    prompts through the reference's batcher (3 slots of 96 positions) and
+    the port's, tokens equal."""
+    cfg_r, cfg_t, rp, tp = qwen3
+    reqs = serve_lm.make_requests(cfg_t, 2, 4)
+    rng = np.random.default_rng(0)  # the reference script's draws
+    ref = rbatcher.Batcher(cfg_r, rp, max_batch=3, max_len=96)
+    want = []
+    for i in range(2):
+        plen = int(rng.integers(4, 24))
+        want.append(rbatcher.Request(i, rng.integers(0, cfg_r.vocab, plen).astype(np.int32), 4))
+        ref.submit(want[-1])
+    ref.run()
+    serve_lm.serve(cfg_t, tp, reqs)
+    for w, r in zip(want, reqs):
+        np.testing.assert_array_equal(r.prompt, w.prompt)
+        assert r.done and r.out == [int(x) for x in w.out] and len(r.out) == 4
+    assert "continuous batching matches unbatched generation" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("arch", FAMILIES)

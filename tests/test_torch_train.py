@@ -9,7 +9,11 @@ family, ``loss_fn`` within 1e-5 relative and every parameter's gradient
 within 1e-4 of that leaf's max |g| against ``jax.value_and_grad``;
 ``optimizer.apply`` and ``grad_compress.compress`` on identical gradients
 within 1e-6 (the masks exactly equal); four train steps with two
-microbatches and compression within 1e-4 relative."""
+microbatches and compression within 1e-4 relative; three steps of the
+port's ``examples/train_lm.py`` stage 2 (``repro_torch.examples.train_lm``:
+batches seeded from the stage-1 kept ids, the checkpointing supervisor)
+against the reference script's stage 2 from the same state, losses within
+1e-4 relative."""
 import dataclasses
 
 import numpy as np
@@ -21,6 +25,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro import configs as rconfigs  # noqa: E402
 from repro.data import synthetic as rsynthetic  # noqa: E402
+from repro.ft import supervisor as rsupervisor  # noqa: E402
 from repro.models import flash as rflash  # noqa: E402
 from repro.models import layers as rlayers  # noqa: E402
 from repro.models import model as rmodel  # noqa: E402
@@ -29,6 +34,7 @@ from repro.train import optimizer as roptimizer  # noqa: E402
 from repro.train import train_step as rts  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.examples import train_lm  # noqa: E402
 from repro_torch.models import flash, layers, model  # noqa: E402
 from repro_torch.train import grad_compress, optimizer, train_step as ts  # noqa: E402
 from test_torch_models import reference_tree, t  # noqa: E402
@@ -320,3 +326,37 @@ def test_train_steps_with_microbatches_and_compression(qwen3):
     assert int(state["opt"]["step"]) == 4
     worst = jax.tree.map(rel_max, r_state["params"], model.params_to_numpy(state["params"]))
     assert max(jax.tree.leaves(worst)) <= 1e-3, worst
+
+
+def test_train_lm_example_stage2_matches_reference_script(qwen3, tmp_path):
+    """Three steps at 4 x 24 tokens of ``examples/train_lm.py``'s stage 2
+    (float32 SMOKE qwen3, the script's optimizer at ``--steps 3``, a
+    checkpoint every step) from the reference's state, beside the reference
+    script's loop: each step's loss within 1e-4 relative."""
+    cfg_r, cfg_t, tree = qwen3
+    kept, _ = train_lm.curate(4096, seed=1, P=8, device="cpu")
+    steps, B, S = 3, 4, 24
+    opt_r = roptimizer.OptConfig(lr=1e-3, warmup_steps=20, total_steps=steps)
+    r_state = {"params": jax.tree.map(jnp.asarray, tree),
+               "opt": roptimizer.init(jax.tree.map(jnp.asarray, tree))}
+    kept_np = kept.numpy()
+
+    def r_batches(step):  # the reference script's batch_fn
+        rng = np.random.default_rng(np.random.SeedSequence([7, step]))
+        seeds = rng.choice(kept_np, size=B)
+        return rsynthetic.token_batch(cfg_r, "train", B, S, step, seed=int(seeds[0]))
+
+    _, r_hist = rsupervisor.run_train_loop(
+        r_state, jax.jit(rts.make_train_step(cfg_r, opt_r)), r_batches, steps=steps,
+        ckpt_dir=str(tmp_path), ckpt_every=max(steps // 4, 1), log_every=1)
+    opt_cfg = optimizer.OptConfig(**dataclasses.asdict(opt_r))
+    state = ts.init_state(cfg_t, 0, opt_cfg, device="cpu")
+    state["params"] = model.params_from_numpy(cfg_t, tree, device="cpu",
+                                              dtype=torch.float32).requires_grad_(True)
+    state, hist, _ = train_lm.train(cfg_t, opt_cfg, state,
+                                    train_lm.kept_batch_fn(cfg_t, kept, B, S, "cpu"),
+                                    steps=steps, log_every=1)
+    assert [s for s, _ in hist] == [s for s, _ in r_hist] == [1, 2, 3]
+    for (_, loss), (_, r_loss) in zip(hist, r_hist):
+        assert abs(loss - r_loss) <= STEP_LOSS_TOL * r_loss
+    assert int(state["opt"]["step"]) == steps
