@@ -193,7 +193,7 @@ def run_eval(
         return None, (outs, stats)
 
     stacked = {name: env[name] for name in rel_names}
-    traced = tracer is not None and getattr(tracer, "enabled", False)
+    traced = tracer is not None
     phase_spans = tracer.current() if traced else []
     base = len(phase_spans)
     outputs, stats = run_pipeline(
@@ -206,5 +206,5 @@ def run_eval(
     if traced:
         for sp in phase_spans[base:]:
             if sp.name == "eval.shuffle":
-                sp.args["bytes"] = int(stats["bytes_fwd"])
+                sp.args["bytes"] = stats["bytes_fwd"]
     return outputs, stats

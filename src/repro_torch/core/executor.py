@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import math
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass, field, replace
 from typing import Callable, Iterable, Sequence
 
@@ -83,7 +84,12 @@ from repro_torch.core.planner import (
 )
 from repro_torch.core.relation import Relation
 from repro_torch.engine.comm import Comm
-from repro_torch.obs.tracer import Span, rebase as _rebase_spans, scale_spans as _scale_spans
+from repro_torch.obs.tracer import (
+    Span,
+    host_span,
+    rebase as _rebase_spans,
+    scale_spans as _scale_spans,
+)
 
 
 class CapacityFault(RuntimeError):
@@ -224,6 +230,23 @@ def int_stats(stats: dict) -> tuple[dict, str]:
     s = dict(stats)
     backend = str(s.pop("backend", ""))
     return {k: int(v) for k, v in s.items()}, backend
+
+
+def _resolve_span_args(spans: list[Span], stats: dict, ints: dict) -> None:
+    """Replace the device counters the operators annotated on ``spans``
+    (0-d tensors of ``stats``) by the ints :func:`int_stats` read for the
+    job, so tracing reads back nothing the untraced path does not.  A
+    counter of an attempt that overflowed and ran again is not among the
+    final stats, is never read, and is dropped."""
+    known = {id(v): ints[k] for k, v in stats.items() if k in ints}
+    for top in spans:
+        for sp in top.walk():
+            for k, v in list(sp.args.items()):
+                if isinstance(v, torch.Tensor):
+                    if id(v) in known:
+                        sp.args[k] = known[id(v)]
+                    else:
+                        del sp.args[k]
 
 
 def _fold(values) -> float:
@@ -675,9 +698,9 @@ class Executor:
         self.config = config or ExecutorConfig()
         self.stats = stats
         #: phase-span tracer (repro_torch.obs.Tracer) — None (default) keeps the
-        #: hot path bit-identical to the untraced build; enabled tracing
-        #: syncs per pipeline stage so spans carry honest device time
-        #: (DESIGN.md §14).
+        #: hot path bit-identical to the untraced build; a tracer with
+        #: ``trace_sync`` syncs per pipeline stage so spans carry honest
+        #: device time (DESIGN.md §14).
         self.tracer = tracer
         #: metric registry (repro_torch.obs.MetricRegistry) — when present,
         #: execute() publishes msj.*/ft.* counters from each report.
@@ -759,9 +782,7 @@ class Executor:
                 cap_slack=self.config.cap_slack if cap_slack is None else cap_slack,
                 tracer=self.tracer,
             )
-            stats["input_rows"] = sum(
-                int(self.env[r].count()) for r in _msj_input_rels(job, self.env)
-            )
+            stats["input_rows"] = self._count_rows(self.env, _msj_input_rels(job, self.env))
             stats["backend"] = backend
             return outs, stats
         if isinstance(job, SkewProfileJob):
@@ -789,9 +810,7 @@ class Executor:
                     1 for _, fps in table.counts
                     for _, n in fps if n >= table.threshold
                 ),
-                "input_rows": sum(
-                    int(self.env[r].count()) for r in job_reads(job)
-                ),
+                "input_rows": self._count_rows(self.env, job_reads(job)),
             }
             return {job.salt: table}, stats
         if isinstance(job, TransferJob):
@@ -830,8 +849,8 @@ class Executor:
                 tracer=self.tracer,
                 skew=skew,
             )
-            stats["input_rows"] = sum(
-                int(self.env[r].count()) for r in _msj_input_rels(job.base, self.env)
+            stats["input_rows"] = self._count_rows(
+                self.env, _msj_input_rels(job.base, self.env)
             )
             return ({job.buffer: buf} if job.buffer else {}), stats
         if isinstance(job, ComputeJob):
@@ -866,21 +885,28 @@ class Executor:
         # EVAL job
         env = dict(self.env)
         units = []
-        input_rows = 0
-        for q, xin in zip(job.queries, job.atom_inputs):
-            x0 = f"{q.name}#G"
-            env[x0] = guard_projection(self.env[q.guard.rel], q, x0)
-            out_pos = tuple(q.guard.vars.index(v) for v in q.out_vars)
-            units.append(
-                EvalUnit(
-                    q.name, x0, tuple(xin), tuple(q.atoms), q.cond, out_pos,
-                    salt=query_salt(q),
+        inputs = []
+        with host_span(self.tracer, "exec.eval_inputs"):
+            for q, xin in zip(job.queries, job.atom_inputs):
+                x0 = f"{q.name}#G"
+                env[x0] = guard_projection(self.env[q.guard.rel], q, x0)
+                out_pos = tuple(q.guard.vars.index(v) for v in q.out_vars)
+                units.append(
+                    EvalUnit(
+                        q.name, x0, tuple(xin), tuple(q.atoms), q.cond, out_pos,
+                        salt=query_salt(q),
+                    )
                 )
-            )
-            input_rows += int(env[x0].count()) + sum(int(self.env[x].count()) for x in xin)
+                inputs += [x0, *xin]
+        input_rows = self._count_rows(env, inputs)
         outs, stats = run_eval(env, units, self.comm, tracer=self.tracer)
         stats["input_rows"] = input_rows
         return outs, stats
+
+    def _count_rows(self, env: dict, names) -> int:
+        """Valid rows of the named relations, one device read each."""
+        with host_span(self.tracer, "exec.input_rows"):
+            return sum(int(env[r].count()) for r in names)
 
     def run_job_ft(
         self,
@@ -902,24 +928,17 @@ class Executor:
         """
         state = RetryState() if state is None else state
         tr = self.tracer
-        traced = tr is not None and getattr(tr, "enabled", False)
         attempts = 0
         while True:
             attempts += 1
             sp = None
             try:
-                if traced:
-                    # one span per dispatch attempt: retries and capacity
-                    # re-runs show up as sibling ft.attempt slices with the
-                    # pipeline phase spans nested inside (DESIGN.md §14)
-                    with tr.span("ft.attempt", cat="attempt",
-                                 attempt=attempts) as sp:
-                        if on_job is not None:
-                            on_job(job, attempts)
-                        outs, stats = self.run_job(
-                            job, cap_override=state.cap, cap_slack=state.slack
-                        )
-                else:
+                # one span per dispatch attempt: retries and capacity
+                # re-runs show up as sibling ft.attempt slices with the
+                # pipeline phase spans nested inside (DESIGN.md §14)
+                with nullcontext() if tr is None else tr.span(
+                    "ft.attempt", cat="attempt", attempt=attempts
+                ) as sp:
                     if on_job is not None:
                         on_job(job, attempts)
                     outs, stats = self.run_job(
@@ -1027,49 +1046,47 @@ class Executor:
         max_restarts: int,
         wall_scale: Callable | None,
         attempt: int,
-    ) -> tuple[dict, dict, int, float, list[Span]]:
+    ) -> tuple[dict, dict, str, int, float, list[Span]]:
         """One timed dispatch attempt: run to completion (with retries) and
         measure its wall, without publishing outputs (first-completion-wins
         decides what gets published).  ``wall_scale(job, attempt)`` scales
         the measured wall in the *virtual* timeline — the fault-injection
         hook benchmarks/tests use to create deterministic stragglers.
+        Returns the outputs, the stats as host ints (:func:`int_stats`,
+        read after ``run_job_ft``'s overflow read has synchronized), the
+        probe backend, the attempt count, the wall and the spans.
 
         When tracing is on, the attempt's phase spans are captured,
         rebased to offsets from the dispatch, and scaled by the same
         factor as the wall, so they nest inside the virtual job slice."""
         tr = self.tracer
-        traced = tr is not None and getattr(tr, "enabled", False)
-        spans: list[Span] = []
-        t0 = time.perf_counter()
-        if traced:
-            with tr.capture() as spans:
+        with host_span(tr, "exec.dispatch"):
+            t0 = time.perf_counter()
+            with nullcontext([]) if tr is None else tr.capture() as spans:
                 outs, stats, attempts = self.run_job_ft(
                     job, on_job, state=state, max_restarts=max_restarts
                 )
                 if self.config.sync_per_job:
                     _block(outs)
-        else:
-            outs, stats, attempts = self.run_job_ft(
-                job, on_job, state=state, max_restarts=max_restarts
-            )
-            if self.config.sync_per_job:
-                _block(outs)
-        measured = time.perf_counter() - t0
-        wall = measured
-        if wall_scale is not None:
-            wall *= float(wall_scale(job, attempt))
-        if spans:
-            _rebase_spans(spans, t0, wall / measured if measured > 0.0 else 1.0)
-        return outs, stats, attempts, wall, spans
+            measured = time.perf_counter() - t0
+            wall = measured
+            if wall_scale is not None:
+                wall *= float(wall_scale(job, attempt))
+            ints, backend = int_stats(stats)
+            if spans:
+                _resolve_span_args(spans, stats, ints)
+                _rebase_spans(spans, t0, wall / measured if measured > 0.0 else 1.0)
+        return outs, ints, backend, attempts, wall, spans
 
     def _publish(self, outs: dict) -> None:
-        for name, rel in outs.items():
-            # XferBuffers and SaltTables are in-flight sub-node state, not
-            # relations: never compacted, never committed, dropped from the
-            # env once their consumer sub-node completes
-            if self.config.compact and isinstance(rel, Relation):
-                rel = rel.compacted()
-            self.env[name] = rel
+        with host_span(self.tracer, "exec.publish"):
+            for name, rel in outs.items():
+                # XferBuffers and SaltTables are in-flight sub-node state, not
+                # relations: never compacted, never committed, dropped from the
+                # env once their consumer sub-node completes
+                if self.config.compact and isinstance(rel, Relation):
+                    rel = rel.compacted()
+                self.env[name] = rel
 
     def execute_job(
         self,
@@ -1083,11 +1100,10 @@ class Executor:
     ) -> JobRecord:
         """Run one job to completion: time it, publish its outputs into the
         environment, and append a :class:`JobRecord` to ``report``."""
-        outs, stats, attempts, wall, spans = self._attempt(
+        outs, ints, backend, attempts, wall, spans = self._attempt(
             job, on_job, RetryState(), max_restarts, wall_scale, 0
         )
         self._publish(outs)
-        ints, backend = int_stats(stats)
         rec = JobRecord(job, round_idx, wall, ints, attempts, backend, spans=spans)
         report.records.append(rec)
         return rec
@@ -1156,19 +1172,16 @@ class Executor:
         self.ft_counters = dict(
             overflow_retries=0, fault_retries=0, speculative=0, shard_recoveries=0
         )
-        if self.config.execution_mode == "waves":
-            if self.config.fail_policy == "isolate":
-                raise ValueError(
-                    "fail_policy='isolate' requires execution_mode='async': "
-                    "the barrier-wave walk has no per-job taint sweep"
-                )
-            env, report = self._execute_waves(
-                nodes, slots, est, on_job, max_restarts, wall_scale
+        if self.config.execution_mode == "waves" and self.config.fail_policy == "isolate":
+            raise ValueError(
+                "fail_policy='isolate' requires execution_mode='async': "
+                "the barrier-wave walk has no per-job taint sweep"
             )
-        else:
-            env, report = self._execute_async(
-                nodes, slots, est, on_job, max_restarts, wall_scale
-            )
+        walk = self._execute_waves if self.config.execution_mode == "waves" else self._execute_async
+        # the request's root span: what its children leave of it is the
+        # scheduler's own host time
+        with host_span(self.tracer, "exec.execute"):
+            env, report = walk(nodes, slots, est, on_job, max_restarts, wall_scale)
         if self.metrics is not None:
             self._publish_metrics(report)
         return env, report
@@ -1319,7 +1332,7 @@ class Executor:
             recov0 = self.ft_counters["shard_recoveries"]
             t0 = time.perf_counter()
             try:
-                outs, stats, attempts, wall, spans = self._attempt(
+                outs, ints, backend, attempts, wall, spans = self._attempt(
                     node.job, on_job, state, max_restarts, wall_scale, 0
                 )
             except (TransientFault, CapacityFault, PermanentFault) as exc:
@@ -1380,7 +1393,7 @@ class Executor:
                 # relation must drop even though that relation has a clean
                 # producer (none — it's a base input)
                 tr = self.tracer
-                if tr is not None and getattr(tr, "enabled", False):
+                if tr is not None:
                     t_sweep = time.perf_counter()
                     n0 = len(report.records)
                     self._taint_sweep(
@@ -1416,10 +1429,9 @@ class Executor:
                     t2 = max(start + deadline, slot_free[s2])
                     if t2 < end:  # the clone could still win
                         try:
-                            outs2, stats2, attempts2, wall2, spans2 = self._attempt(
+                            clone = self._attempt(
                                 node.job, on_job, state, max_restarts, wall_scale, 1
-                            )
-                            clone = (outs2, stats2, attempts2, wall2, spans2, s2, t2)
+                            ) + (s2, t2)
                             self.ft_counters["speculative"] += 1
                         except (TransientFault, CapacityFault, PermanentFault):
                             # speculation is an optimization: a clone that
@@ -1429,19 +1441,16 @@ class Executor:
                             clone = None
             if clone is None:
                 self._publish(outs)
-                ints, backend = int_stats(stats)
                 rec = JobRecord(node.job, node.round_idx, wall, ints, attempts,
                                 backend, start, end, s, spans=spans)
                 recs = [rec]
                 win_end = end
             else:
-                outs2, stats2, attempts2, wall2, spans2, s2, t2 = clone
+                outs2, ints2, backend2, attempts2, wall2, spans2, s2, t2 = clone
                 end2 = t2 + wall2
                 win_end = min(end, end2)  # ties go to the original
                 clone_wins = end2 < end
                 self._publish(outs2 if clone_wins else outs)
-                ints, backend = int_stats(stats)
-                ints2, backend2 = int_stats(stats2)
                 # the loser's wall is truncated at the winner's end; its
                 # spans shrink by the same factor so they stay inside the
                 # cancelled slice (the winner's factor is exactly 1.0)

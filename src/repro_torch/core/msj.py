@@ -690,7 +690,7 @@ def _sized_cap(
     count-sized (two-phase, DESIGN.md §6), or worst-case bound.  Returns
     ``(cap, counted)`` where ``counted`` marks a count phase (its ``P·P``
     int32 exchange is then charged to ``bytes_fwd``)."""
-    traced = tracer is not None and getattr(tracer, "enabled", False)
+    traced = tracer is not None
     if forward_cap is not None:
         return forward_cap, False
     if not count_sized:
@@ -1069,7 +1069,7 @@ def run_msj(
     spec = make_spec(sjs, fingerprint=fingerprint)
     if skew is not None:
         skew = skew.live(packing=packing, P=comm.P)
-    traced = tracer is not None and getattr(tracer, "enabled", False)
+    traced = tracer is not None
     cap_s, counted = _sized_cap(
         spec, db, comm,
         packing=packing, forward_cap=forward_cap,
@@ -1099,16 +1099,16 @@ def run_msj(
     stats["bytes_bwd"] = stats["hits"] * 2 * 4
     stats["forward_cap"] = cap_s
     if traced:
-        # annotate the just-recorded stage spans with the shuffled bytes
-        # (known only after the shard-summed stats materialize; the sync
-        # is bounded to the scalar stats, not the output relations)
+        # annotate the just-recorded stage spans with the shuffled bytes:
+        # the stats' own 0-d tensors, which the executor resolves to the
+        # ints it reads for the job's stats (nothing is read back here)
         by_name = {sp.name: sp for sp in phase_spans[base:]}
         if "msj.shuffle.fwd" in by_name:
-            by_name["msj.shuffle.fwd"].args["bytes"] = int(stats["bytes_fwd"])
+            by_name["msj.shuffle.fwd"].args["bytes"] = stats["bytes_fwd"]
         if "msj.scatter" in by_name:
-            by_name["msj.scatter"].args["bytes"] = int(stats["bytes_bwd"])
+            by_name["msj.scatter"].args["bytes"] = stats["bytes_bwd"]
         if "msj.probe" in by_name:
-            by_name["msj.probe"].args["hits"] = int(stats["hits"])
+            by_name["msj.probe"].args["hits"] = stats["hits"]
     return outputs, stats
 
 
@@ -1147,7 +1147,7 @@ def run_msj_transfer(
     spec = make_spec(sjs, fingerprint=fingerprint)
     if skew is not None:
         skew = skew.live(packing=packing, P=comm.P)
-    traced = tracer is not None and getattr(tracer, "enabled", False)
+    traced = tracer is not None
     cap_s, counted = _sized_cap(
         spec, db, comm,
         packing=packing, forward_cap=forward_cap,
@@ -1181,7 +1181,7 @@ def run_msj_transfer(
     if traced:
         by_name = {sp.name: sp for sp in phase_spans[base:]}
         if "msj.xfer" in by_name:
-            by_name["msj.xfer"].args["bytes"] = int(stats["bytes_fwd"])
+            by_name["msj.xfer"].args["bytes"] = stats["bytes_fwd"]
     buf = XferBuffer(
         name=name,
         sjs=tuple(sjs),
@@ -1214,7 +1214,7 @@ def run_msj_compute(
     matches the tags the transfer actually shuffled; the executor filters
     the outputs down to the compute node's write set."""
     spec = make_spec(list(buf.sjs), fingerprint=buf.fingerprint)
-    traced = tracer is not None and getattr(tracer, "enabled", False)
+    traced = tracer is not None
     kit = _MSJKit(
         db, spec, comm, buf.cap,
         packing=buf.packing, fused=fused, probe_fn=probe_fn,
@@ -1240,7 +1240,7 @@ def run_msj_compute(
     if traced:
         by_name = {sp.name: sp for sp in phase_spans[base:]}
         if "msj.scatter" in by_name:
-            by_name["msj.scatter"].args["bytes"] = int(stats["bytes_bwd"])
+            by_name["msj.scatter"].args["bytes"] = stats["bytes_bwd"]
         if "msj.probe" in by_name:
-            by_name["msj.probe"].args["hits"] = int(stats["hits"])
+            by_name["msj.probe"].args["hits"] = stats["hits"]
     return outputs, stats

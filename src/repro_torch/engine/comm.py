@@ -30,6 +30,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.relation import Relation
+from repro_torch.obs.tracer import host_span
 
 
 @dataclass(frozen=True)
@@ -247,10 +248,11 @@ def run_pipeline(
     the untraced path, so traced and untraced runs are bit-identical.  Per
     stage *device*-time attribution needs a barrier after every stage; opt
     in via ``Tracer(trace_sync=True)`` (a measurement mode, never the
-    default).
+    default).  Under SimComm each stage also gets two host spans: the
+    P-shard loop with the carry's stack (``sim.shards``) and the
+    leaf-by-leaf exchange (``sim.exchange``).
     """
-    traced = tracer is not None and getattr(tracer, "enabled", False)
-    trace_sync = traced and getattr(tracer, "trace_sync", False)
+    trace_sync = tracer is not None and tracer.trace_sync
 
     def mesh_stage(stage, carry):
         send, carry = stage(comm.shard_id(), carry)
@@ -259,21 +261,23 @@ def run_pipeline(
         return (tree_map(comm.all_to_all, send), carry)
 
     def sim_stage(stage, carry):
-        outs = [stage(p, tree_index(carry, p)) for p in comm.shard_ids()]
-        sends = [tree_leaves(o[0]) for o in outs]
-        template = outs[0][0]
-        carry = tree_stack([o[1] for o in outs])
-        del outs
+        with host_span(tracer, "sim.shards"):
+            outs = [stage(p, tree_index(carry, p)) for p in comm.shard_ids()]
+            sends = [tree_leaves(o[0]) for o in outs]
+            template = outs[0][0]
+            carry = tree_stack([o[1] for o in outs])
+            del outs
         if template is None:
             return carry
         # exchange leaf by leaf: each per-source buffer is released as soon
         # as it has been copied into the received buffer
         recv = []
-        for i in range(len(sends[0])):
-            column = [s[i] for s in sends]
-            for s in sends:
-                s[i] = None
-            recv.append(comm.exchange(column))
+        with host_span(tracer, "sim.exchange"):
+            for i in range(len(sends[0])):
+                column = [s[i] for s in sends]
+                for s in sends:
+                    s[i] = None
+                recv.append(comm.exchange(column))
         return (tree_unflatten(template, recv), carry)
 
     if isinstance(comm, MeshComm):
@@ -281,7 +285,7 @@ def run_pipeline(
     else:
         one_stage, carry = sim_stage, stacked_args
     for i, stage in enumerate(stages):
-        if traced:
+        if tracer is not None:
             label = names[i] if names and i < len(names) else getattr(
                 stage, "__name__", f"stage{i}"
             )

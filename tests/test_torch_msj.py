@@ -75,7 +75,7 @@ def jit_pipeline(comm, stages, stacked_args, *, tracer=None, names=None):
     the exchanges between them are as ``run_pipeline`` runs them, so every
     value is the same (int32 and bool arrays); a tracer's phase spans are
     opened around the same steps."""
-    traced = tracer is not None and getattr(tracer, "enabled", False)
+    traced = tracer is not None
     carry = stacked_args
     for i, stage in enumerate(stages):
         label = names[i] if names and i < len(names) else getattr(stage, "__name__", f"stage{i}")

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import io
 import json
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -43,7 +44,7 @@ from repro_torch.core.planner import (  # noqa: E402
     TransferJob,
     plan_greedy,
 )
-from repro_torch.core.relation import db_from_reference  # noqa: E402
+from repro_torch.core.relation import db_from_dict, db_from_reference  # noqa: E402
 from repro_torch.engine.comm import SimComm  # noqa: E402
 from repro_torch.ft.supervisor import FTStats  # noqa: E402
 from repro_torch.obs.tracer import Span  # noqa: E402
@@ -266,3 +267,98 @@ def test_traced_execute_trace_validates_and_replays(traced_runs):
     for W in (None, 1, 2):
         assert rep2.net_time_by_events(W) == trep.net_time_by_events(W)
     assert set(obs.phase_breakdown(trep)) >= {"ft.attempt", "msj.probe"}
+
+
+# --------------------------------------------------------------------------
+# the span log on the profiler's clock
+# --------------------------------------------------------------------------
+
+# each traced stage of the GREEDY plan and the runner spans under it (the
+# count stage's pipeline is untraced; a pipeline's last stage sends nothing)
+RUNNER_SPANS = {
+    "msj.count": [],
+    "msj.shuffle.fwd": ["sim.shards", "sim.exchange"],
+    "msj.probe": ["sim.shards", "sim.exchange"],
+    "msj.scatter": ["sim.shards"],
+    "eval.shuffle": ["sim.shards", "sim.exchange"],
+    "eval.reduce": ["sim.shards"],
+}
+
+
+@pytest.fixture(scope="module")
+def greedy_plan():
+    """A GREEDY plan and its database at P = 2, on the CPU."""
+    tq = BSGF("Z", ("x", "y"), Atom("R", "x", "y"), all_of(Atom("S", "x"), Atom("T", "y")))
+    db_np = JQ.gen_db([JBSGF("Z", ("x", "y"), JAtom("R", "x", "y"),
+                             jall_of(JAtom("S", "x"), JAtom("T", "y")))], n_guard=96, n_cond=64)
+    db = db_from_dict(db_np, P=2, device="cpu")
+    return db, plan_greedy([tq], stats_of_db(db))
+
+
+@pytest.fixture(scope="module")
+def port_greedy(greedy_plan):
+    """The plan executed by the port traced and untraced: ``(tracer,
+    traced (env, report), untraced (env, report))``."""
+    db, plan = greedy_plan
+    tracer = obs.Tracer()
+    traced = Executor(dict(db), SimComm(2), tracer=tracer).execute(plan)
+    return tracer, traced, Executor(dict(db), SimComm(2)).execute(plan)
+
+
+def test_span_log_nests_under_one_execute_root(port_greedy):
+    tracer, (_, rep), _ = port_greedy
+    log = tracer.log
+    assert [e[2] for e in log if e[4] is None] == ["exec.execute"]
+    for ns0, ns1, _, _, parent in log:
+        assert ns0 <= ns1
+        if parent is not None:
+            assert log[parent][0] <= ns0 and ns1 <= log[parent][1]
+    names = [e[2] for e in log]
+    assert names.count("exec.dispatch") == names.count("exec.publish") == len(rep.records)
+    assert names.count("exec.eval_inputs") == 1 and names.count("exec.input_rows") == 2
+
+
+def test_runner_spans_once_per_stage(port_greedy):
+    log = port_greedy[0].log
+    under = {i: [e[2] for e in log if e[4] == i] for i, e in enumerate(log) if e[3] == "phase"}
+    assert {log[i][2]: kids for i, kids in under.items()} == RUNNER_SPANS
+    assert sum(e[2].startswith("sim.") for e in log) == 8
+
+
+def test_phase_spans_keep_the_reference_names_order_and_args(traced_runs):
+    (_, jrep, _), (_, trep, _) = traced_runs
+
+    def trees(rep):
+        return [[(sp.name, sp.cat, sp.args) for top in r.spans for sp in top.walk()]
+                for r in rep.records]
+
+    assert trees(jrep) == trees(trep)
+    for tree in trees(trep):
+        assert all(type(v) in (int, str) for _, _, args in tree for v in args.values())
+
+
+def test_traced_and_untraced_outputs_bit_identical(port_greedy):
+    _, (env, _), (env0, _) = port_greedy
+    rels = [k for k, v in env0.items() if hasattr(v, "valid")]
+    assert set(rels) == {k for k, v in env.items() if hasattr(v, "valid")}
+    for k in rels:
+        assert torch.equal(env[k].data, env0[k].data) and torch.equal(env[k].valid, env0[k].valid)
+
+
+def test_tracing_reads_back_nothing_the_untraced_path_does_not(greedy_plan, monkeypatch):
+    """Every read of a tensor's value into Python, counted in an untraced
+    and a traced execute: the counts are the same."""
+    db, plan = greedy_plan
+    reads = Counter()
+    for name in ("__int__", "__bool__", "item", "tolist"):
+        def read(self, *a, _orig=getattr(torch.Tensor, name), _name=name, **k):
+            reads[_name] += 1
+            return _orig(self, *a, **k)
+
+        monkeypatch.setattr(torch.Tensor, name, read)
+    counts = []
+    for tracer in (None, obs.Tracer()):
+        reads.clear()
+        Executor(dict(db), SimComm(2), tracer=tracer).execute(plan)
+        counts.append(dict(reads))
+    assert counts[0] == counts[1] and counts[0]["__int__"] > 0
